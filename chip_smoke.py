@@ -7,11 +7,16 @@ Phases, each printing one JSON line (any failure exits non-zero and prints
 no result):
 
   1. device        require CUDA; print the card's name and power limit
-  2. build         compile every kernel from tloam_torch/csrc with nvcc
+  2. build         compile every kernel from tloam_torch/csrc with nvcc; ptxas
+                   registers and static shared memory
   3. kernel_check  each kernel against its plain PyTorch version on the
                    card, bit for bit: seeded random rings (short rings, rings
-                   longer than W, exact ties, spikes) and the real dense
-                   planes of a full-size synthetic frame; times both
+                   longer than W, exact ties, spikes), the sweep of
+                   tests/test_torch_cuda.py (4 sector settings x 3 widths,
+                   picks at sector boundaries) and the real dense planes of
+                   a full-size synthetic frame; dynamic shared memory per
+                   width; times both (CUDA events over 200 wrapper calls,
+                   and torch.profiler with device kernels per call)
   4. drive         the full-size 23-frame synthetic drive (64 rings x 1870
                    azimuth steps, capacity 131072, default PipelineConfig)
                    through tloam_torch.pipeline.frontend.odometry_step_packed,
@@ -32,10 +37,12 @@ and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -55,6 +62,15 @@ PEAK_F32_FLOPS = 67e12
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def load_by_path(path: Path):
+    """Import a file of the checkout as a module (a site package named
+    `tests` may shadow the checkout's tests/ directory)."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -94,20 +110,23 @@ def count_syncs(fn):
 
 
 def profiled_kernel_ms(fn, reps: int, name: str):
-    """Device time of the kernel `name` per launch from torch.profiler, or
-    None where the profiler records no device time for it."""
+    """(device ms per launch of the kernel `name`, device kernels per call
+    of fn) from torch.profiler; the time is None where the profiler records
+    no device time for it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    per_call = sum(ev.device_type == DeviceType.CUDA for ev in prof.events()) / reps
     for ev in prof.key_averages():
         if name in ev.key and ev.count:
             t = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-            return t / 1e3 / ev.count if t else None
-    return None
+            return (t / 1e3 / ev.count if t else None), per_call
+    return None, per_call
 
 
 def profile_frame(fn):
@@ -264,7 +283,7 @@ def main() -> int:
               ring_min_num=cfg.ground.ring_min_num)
     R, W = cfg.sensor.sensor_model, cfg.edge_ring_width
 
-    def compare(planes):
+    def compare(planes, kw=kw):
         outs_k = edge._pick_rounds_cuda(*planes, **kw)
         outs_p = edge._pick_rounds_plain(*planes, **kw)
         torch.cuda.synchronize()
@@ -275,6 +294,23 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rand = [torch.from_numpy(a).to(dev) for a in random_rings(rng, R, W, kw["ring_min_num"])]
     same_r, err_r, n_edge_r, n_pick_r = compare(rand)
+
+    # the card tests' sweep: every mapping of sectors to warps (settings of
+    # num_sectors and picks), at a width that is no multiple of 32 and at
+    # one that needs more than 48 KB of shared memory; 16 rows each put
+    # picks within 5 columns of the sector boundaries
+    card_tests = load_by_path(Path(__file__).resolve().parent / "tests" / "test_torch_cuda.py")
+    SETTINGS, sweep_rings = card_tests.SETTINGS, card_tests.rings
+    sweep = []
+    for width in (2304, 4096, 1000):
+        for ns, picks in SETTINGS:
+            kws = dict(kw, num_sectors=ns, picks_per_sector=picks)
+            same_s, err_s, n_edge_s, _ = compare(sweep_rings(dev, width=width, num_sectors=ns), kws)
+            sweep.append({"W": width, "num_sectors": ns, "picks": picks, "bit_identical": same_s,
+                          "max_abs_err": err_s, "edges": n_edge_s})
+    same_s = all(s["bit_identical"] and s["edges"] > 0 for s in sweep)
+    err_s = max(s["max_abs_err"] for s in sweep)
+    smem = {w: build.load("edge_pick").tloam_edge_pick_smem_bytes(w) for w in (1000, W, 4096)}
 
     scene = synthetic.Scene.urban(np.random.default_rng(3), extent=80.0)
     gt = synthetic.straight_trajectory(N_FRAMES, step=1.0, yaw_rate=0.005)
@@ -290,14 +326,16 @@ def main() -> int:
     real = [d.dx, d.dy, d.dz, d.dval, d.ring_len]
     same_f, err_f, n_edge_f, n_pick_f = compare(real)
     k_ms = cuda_ms(lambda: edge._pick_rounds_cuda(*real, **kw), 200)
-    k_dev_ms = profiled_kernel_ms(lambda: edge._pick_rounds_cuda(*real, **kw), 20, "edge_pick_kernel")
+    k_dev_ms, k_per_call = profiled_kernel_ms(lambda: edge._pick_rounds_cuda(*real, **kw), 20, "edge_pick_kernel")
     p_ms = cuda_ms(lambda: edge._pick_rounds_plain(*real, **kw), 5)
     bound_ms, bound_by = edge_bound_ms(R, W, kw["picks_per_sector"])
-    ok_k = same_r and same_f and n_edge_f > 0 and n_edge_r > 0
+    ok_k = same_r and same_f and same_s and n_edge_f > 0 and n_edge_r > 0
     emit({"phase": "kernel_check", "kernel": "edge_pick", "shape": [R, W],
           "random": {"bit_identical": same_r, "max_abs_err": err_r, "edges": n_edge_r, "picked": n_pick_r},
           "frame": {"bit_identical": same_f, "max_abs_err": err_f, "edges": n_edge_f, "picked": n_pick_f},
-          "ms": k_ms, "profiler_device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "ok": ok_k})
+          "sweep": sweep, "dynamic_smem_bytes": smem,
+          "ms": k_ms, "profiler_device_ms": k_dev_ms, "device_kernels_per_call": k_per_call,
+          "plain_ms": p_ms, "bound_ms": bound_ms, "ok": ok_k})
     if not ok_k:
         return 1
 
@@ -362,8 +400,8 @@ def main() -> int:
     emit({"kernels": [{
         "name": "edge_pick", "route": "cuda", "source": "tloam_torch/csrc/edge_pick.cu",
         "replaces": "tloam_tpu/models/edge.py:166", "launches": launches,
-        "max_abs_err": max(err_r, err_f), "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "match": same_r and same_f,
+        "max_abs_err": max(err_r, err_f, err_s), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "match": same_r and same_f and same_s,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

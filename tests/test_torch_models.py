@@ -16,6 +16,7 @@ from tloam_tpu.models import dcvc as jdcvc, edge as jedge, features as jfeat, se
 from tloam_tpu.pipeline.frontend import PipelineConfig as JCfg
 
 from tests.test_torch_common import clouds_from_numpy, jcloud_to_torch, np_of, small_scan, tt
+from tests.test_torch_cuda import SETTINGS, boundary_rows
 
 CAP = 24 * 768
 
@@ -93,14 +94,20 @@ def test_extract_edges_plain_matches_jax(frame):
     np.testing.assert_allclose(np_of(out_t.curvature), cx, rtol=1e-5, atol=1e-6 * cx.max())
 
 
-def test_pick_rounds_plain_matches_jax_dense_path(rng):
-    """Dense planes with short rings, rings longer than W (cyclic taps) and
-    exact curvature ties: the plain pick rounds equal the Pallas kernel run
-    in interpreter mode, and the curvature plane equals _dense_geometry."""
-    R, W = 8, 512
+@pytest.mark.parametrize("num_sectors,picks", SETTINGS)
+def test_pick_rounds_plain_matches_jax_dense_path(rng, num_sectors, picks):
+    """Dense planes with short rings, rings longer than W (cyclic taps),
+    exact curvature ties and picks within 5 columns of the sector
+    boundaries (chains that cross sectors), under the sector settings the
+    CUDA kernel maps to warps in different ways: the plain pick rounds
+    equal the Pallas kernel run in interpreter mode, and the curvature
+    plane equals _dense_geometry."""
+    R, W = 16, 512
     xs, ys, zs, val = (np.zeros((R, W), np.float32) for _ in range(4))
-    lens = np.array([100, 530, 400, 512, 300, 600, 200, 450], np.int32)
-    for r in range(R):
+    lens = np.array([100, 530, 400, 512, 300, 600, 200, 450, 512, 300, 450, 530, 200, 400, 600, 333], np.int32)
+    for p, b in zip((xs, ys, zs, val), boundary_rows(rng, lens[8:], W, num_sectors)):
+        p[8:] = b
+    for r in range(8):
         m = min(lens[r], W)
         if r % 2:
             x = np.arange(m) * 0.25
@@ -112,17 +119,18 @@ def test_pick_rounds_plain_matches_jax_dense_path(rng):
             rad[rng.choice(m, 15, replace=False)] -= 1.5
             x, y = rad * np.cos(az), rad * np.sin(az)
         xs[r, :m], ys[r, :m], zs[r, :m], val[r, :m] = x, y, 0.1 * r, 1.0
-    kw = dict(num_sectors=6, picks_per_sector=20, curv_thres=0.1, suppress_gap_sq=0.05, ring_min_num=131)
+    kw = dict(num_sectors=num_sectors, picks_per_sector=picks, curv_thres=0.1, suppress_gap_sq=0.05, ring_min_num=131)
     e_t, p_t, c_t = tedge._pick_rounds_plain(tt(xs), tt(ys), tt(zs), tt(val), tt(lens), **kw)
     lenr = np.zeros((R, 128), np.float32)
     lenr[:, 0] = lens
     e_j, p_j = jax.jit(lambda *a: jedge._pick_rounds_pallas(*a, **kw, interpret=True))(
         *(jnp.asarray(a) for a in (xs, ys, zs, val, lenr)))
     assert np.asarray(e_j).sum() > 30
+    assert np.asarray(e_j)[8:].sum() > 5 * num_sectors  # the boundary rows pick too
     assert np.array_equal(np_of(e_t), np.asarray(e_j))
     assert np.array_equal(np_of(p_t), np.asarray(p_j))
     d_j, _, _ = jedge._dense_geometry(*(jnp.asarray(a) for a in (xs, ys, zs, val)), jnp.asarray(lenr[:, :1]),
-                                      num_sectors=6, ring_min_num=131)
+                                      num_sectors=num_sectors, ring_min_num=131)
     np.testing.assert_allclose(np_of(c_t), np.asarray(d_j), rtol=1e-6)
 
 

@@ -16,6 +16,7 @@ run on that layout:
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -100,39 +101,54 @@ def _pick_rounds_plain(
     return edge_d, picked_d, dcurv
 
 
+_kernel_fn = None  # the library's launch function, bound at first use
+
+
+def _kernel():
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = build.load("edge_pick").tloam_edge_pick
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        _kernel_fn = fn
+    return _kernel_fn
+
+
 def _pick_rounds_cuda(
     dx, dy, dz, dval, lenr, num_sectors: int, picks_per_sector: int,
     curv_thres: float, suppress_gap_sq: float, ring_min_num: int,
 ):
     """Launch csrc/edge_pick.cu: one CTA per ring. Same outputs as
-    `_pick_rounds_plain`."""
+    `_pick_rounds_plain`; the kernel writes the masks as torch.bool."""
     global LAUNCHES
-    R, W = dx.shape
+    R, W = shape = dx.shape
     for name, t in (("dx", dx), ("dy", dy), ("dz", dz), ("dval", dval)):
-        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous() or t.shape != (R, W):
+        if not (t.is_cuda and t.dtype is torch.float32 and t.shape == shape and t.is_contiguous()):
             raise ValueError(f"edge_pick: {name} must be a contiguous float32 CUDA tensor of shape {(R, W)}")
-    if lenr.device != dx.device or lenr.dtype != torch.int32 or lenr.shape != (R,) or not lenr.is_contiguous():
+    dev = dx.get_device()
+    if not (lenr.dtype is torch.int32 and lenr.get_device() == dev and lenr.shape == (R,) and lenr.is_contiguous()):
         raise ValueError("edge_pick: ring lengths must be a contiguous int32 CUDA tensor of shape (R,)")
     if not (0 < W <= 4096) or not (1 <= num_sectors <= 8):
         raise ValueError(f"edge_pick: needs 0 < W <= 4096 and 1 <= num_sectors <= 8, got {W}, {num_sectors}")
-    lib = build.load("edge_pick")
-    fn = lib.tloam_edge_pick
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    edge = torch.empty((R, W), dtype=torch.uint8, device=dx.device)
-    picked = torch.empty_like(edge)
-    dcurv = torch.empty((R, W), dtype=torch.float32, device=dx.device)
-    with torch.cuda.device(dx.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    fn = _kernel()
+    edge = dx.new_empty(shape, dtype=torch.bool)
+    picked = dx.new_empty(shape, dtype=torch.bool)
+    dcurv = torch.empty_like(dx)
+    # the launch goes to the current device: switch only when dx lies elsewhere
+    on_dev = contextlib.nullcontext() if dev == torch.cuda.current_device() else torch.cuda.device(dev)
+    with on_dev:
         rc = fn(
             dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), dval.data_ptr(), lenr.data_ptr(),
             edge.data_ptr(), picked.data_ptr(), dcurv.data_ptr(), R, W, num_sectors,
-            picks_per_sector, curv_thres, suppress_gap_sq, ring_min_num, stream,
+            picks_per_sector, curv_thres, suppress_gap_sq, ring_min_num,
+            # the raw cudaStream_t of dx's device (torch.cuda.current_stream()
+            # builds a Stream object, several microseconds a call)
+            torch._C._cuda_getCurrentRawStream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"edge_pick: kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    return edge.bool(), picked.bool(), dcurv
+    return edge, picked, dcurv
 
 
 def pick_rounds(dx, dy, dz, dval, lenr, **kw):
