@@ -118,12 +118,3 @@ def test_packed_step_matches_unpacked(drive):
     assert int(diag_p.num_clusters) == int(diag_u.num_clusters)
     assert np.array_equal(np_of(st_p.submap.edge_map.xyz), np_of(st_u.submap.edge_map.xyz))
 
-
-def test_off_default_config_raises():
-    for cfg in (
-        dataclasses.replace(TCFG, frame_planar_fill=64),
-        dataclasses.replace(TCFG, sphere_index_bug=True),
-        dataclasses.replace(TCFG, odometry=dataclasses.replace(TCFG.odometry, mapping_flag=True)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-            tfront.init_state(cfg, "cpu")

@@ -98,7 +98,8 @@ def test_correspondences_and_normal_equations(pair):
         for c in (scan.planar, scan.ground, scan.edge, scan.sphere)
     ))
     Hj, gj, cj = jreg._evaluate(xi, scan, corr_j, wj)
-    ct = treg._Corr(*(tt(np.asarray(getattr(corr_j, f))) for f in treg._Corr._fields))
+    ct = treg._Corr(*(None if getattr(corr_j, f) is None else tt(np.asarray(getattr(corr_j, f)))
+                      for f in treg._Corr._fields))
     wt = treg._Weights(*(tt(np.asarray(v)) for v in wj))
     Ht, gt, costs_t = treg._evaluate(tt(np.asarray(xi)), sc, ct, wt)
     Hj, gj = np.asarray(Hj), np.asarray(gj)
@@ -123,11 +124,3 @@ def test_scan_matching_matches(pair):
     dxi = np.asarray(jse3.log(jnp.asarray(np.linalg.inv(np.asarray(pose_j)) @ np_of(pose_t))))
     assert np.abs(dxi[:3]).max() < 1e-4 and np.abs(dxi[3:]).max() < 1e-4, dxi
 
-
-def test_non_default_modes_raise(pair):
-    scan, submap, predict = pair
-
-    for field, value in (("corr_mode", "knn"), ("plane_residual", "gicp"), ("mu_init", "reference_zero")):
-        cfg = dataclasses.replace(CFG.odometry.tls, **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            treg.scan_matching(_to_torch_fs(scan), _to_torch_fs(submap), tt(predict), cfg)

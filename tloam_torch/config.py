@@ -1,7 +1,8 @@
 """Dataclass configuration mirroring the reference's four YAML files.
 
 Field-for-field copy of ``tloam_tpu/config.py`` plus ``PipelineConfig``
-(``tloam_tpu/pipeline/frontend.py:50-116``). The port keeps its own copy
+(``tloam_tpu/pipeline/frontend.py:50-116``), with its loader: a file and
+dotted-path overrides such as ``"odometry.tls.corr_mode=knn"``. The port keeps its own copy
 because importing any ``tloam_tpu`` module imports JAX; a test holds the two
 equal field for field. Defaults are the reference's shipped values (cited
 per field in ``tloam_tpu/config.py``).
@@ -449,3 +450,75 @@ class PipelineConfig:
     general_cap: int = 49152
     edge_ring_width: int = 2304
     dcvc_cc_iters: int = 6
+
+
+# ---------------------------------------------------------------------------
+# Config loading + dotted-path overrides (tloam_tpu/config.py:429-494)
+# ---------------------------------------------------------------------------
+
+
+def _coerce(old, raw: str):
+    """Parse a CLI string into the type of the value it replaces."""
+    if isinstance(old, bool):
+        low = raw.strip().lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"expected a boolean, got {raw!r}")
+    if isinstance(old, int):
+        return int(raw)
+    if isinstance(old, float):
+        return float(raw)
+    return raw
+
+
+def replace_path(cfg, dotted: str, value):
+    """A copy of a (nested, frozen) dataclass with the field at `dotted`
+    (e.g. "odometry.tls.corr_mode") replaced; a string value is coerced to
+    the type of the field it replaces."""
+    head, _, rest = dotted.partition(".")
+    if not hasattr(cfg, head):
+        avail = [f.name for f in dataclasses.fields(cfg)]
+        raise KeyError(f"no config field {head!r}; available: {avail}")
+    old = getattr(cfg, head)
+    if rest:
+        new = replace_path(old, rest, value)
+    elif dataclasses.is_dataclass(old):
+        raise KeyError(f"{dotted!r} is a config section, not a field")
+    else:
+        new = _coerce(old, value) if isinstance(value, str) else value
+    return dataclasses.replace(cfg, **{head: new})
+
+
+def apply_dict(cfg, tree: dict):
+    """Apply a nested dict (parsed YAML/JSON) onto a dataclass config."""
+    for key, val in tree.items():
+        old = getattr(cfg, key)
+        if isinstance(val, dict):
+            cfg = dataclasses.replace(cfg, **{key: apply_dict(old, val)})
+        else:
+            cfg = replace_path(cfg, key, val)
+    return cfg
+
+
+def load_pipeline_config(path: str | None = None, overrides=()) -> PipelineConfig:
+    """A PipelineConfig from the defaults, an optional YAML/JSON file holding
+    a nested mapping that mirrors the dataclass tree, and dotted-path
+    overrides ("odometry.tls.corr_mode=knn"). `yaml` is imported only when
+    a file is given."""
+    cfg = PipelineConfig()
+    if path:
+        import yaml
+
+        with open(path) as f:
+            tree = yaml.safe_load(f) or {}
+        if not isinstance(tree, dict):
+            raise ValueError(f"config file {path} must hold a mapping")
+        cfg = apply_dict(cfg, tree)
+    for ov in overrides:
+        key, sep, val = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} must look like key=value")
+        cfg = replace_path(cfg, key.strip(), val.strip())
+    return cfg

@@ -328,13 +328,94 @@ def _query_block(grid: HashGrid, queries, query_valid, k: int, r: torch.Tensor, 
     return grid.src_idx[nn_slot], torch.where(nn_ok, nn_dist, BIG), nn_ok
 
 
-def query_knn(grid: HashGrid, queries, query_valid, k: int, radius=None, max_per_cell: int = 8):
+def query_knn(grid: HashGrid, queries, query_valid, k: int, radius=None, max_per_cell: int = 8,
+              chunk_size: int | None = None):
     """Batched kNN within `radius` (defaults to the cell size): (idx (Q,k)
     into the ORIGINAL buffer, dist_sq (Q,k), neighbor_valid (Q,k)). Replaces
-    KDTreeFlann::SearchHybrid."""
+    KDTreeFlann::SearchHybrid. With `chunk_size`, queries run in chunks of
+    that many, which bounds the candidate gather to chunk_size x 27 x
+    max_per_cell points; each query's answer does not depend on the chunk."""
     r = torch.full((), grid.cell_size if radius is None else radius, dtype=queries.dtype,
                      device=queries.device)
-    return _query_block(grid, queries, query_valid, k, r, max_per_cell)
+    Q = queries.shape[0]
+    if chunk_size is None or chunk_size >= Q:
+        return _query_block(grid, queries, query_valid, k, r, max_per_cell)
+    parts = [
+        _query_block(grid, queries[i:i + chunk_size], query_valid[i:i + chunk_size], k, r, max_per_cell)
+        for i in range(0, Q, chunk_size)
+    ]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def gather_planes(points: torch.Tensor, idx: torch.Tensor):
+    """Neighbour coordinates as three (Q,k) planes."""
+    return points[:, 0][idx], points[:, 1][idx], points[:, 2][idx]
+
+
+def neighbour_covariance(points: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
+    """Covariance (a00, a01, a02, a11, a12, a22) of each point's valid
+    neighbours idx (Q,k), from moments about the point itself: raw-coordinate
+    second moments cancel in float32 at map scale."""
+    m = ok.to(points.dtype)
+    cnt = torch.clamp(torch.sum(m, dim=-1), min=1.0)
+    xs, ys, zs = gather_planes(points, idx)
+    xs = (xs - points[:, 0:1]) * m
+    ys = (ys - points[:, 1:2]) * m
+    zs = (zs - points[:, 2:3]) * m
+    mx, my, mz = (torch.sum(a, -1) / cnt for a in (xs, ys, zs))
+    return (
+        torch.sum(xs * xs, -1) / cnt - mx * mx,
+        torch.sum(xs * ys, -1) / cnt - mx * my,
+        torch.sum(xs * zs, -1) / cnt - mx * mz,
+        torch.sum(ys * ys, -1) / cnt - my * my,
+        torch.sum(ys * zs, -1) / cnt - my * mz,
+        torch.sum(zs * zs, -1) / cnt - mz * mz,
+    )
+
+
+def voxel_select_top(xyz, intensity, valid, score, voxel_size: float, max_out: int):
+    """The highest-`score` original point of each occupied voxel (no
+    averaging), compacted to `max_out` slots in hash order, thinned
+    uniformly on overflow (tloam_tpu/ops/voxel.py:224-289). One int32 key
+    sorts by (21 high bits of the cell hash, descending 10-bit score rank);
+    run boundaries use the exact cell coordinates."""
+    dtype = xyz.dtype
+    coords = _cell_coords(xyz, voxel_size)
+    coords = torch.where(valid[:, None], coords, _SENTINEL)
+    h = _hash_coords(coords) & 0x7FFFFFFF
+    lo, width = score_range(score, valid)
+    # float -> int32 truncates toward zero, as .astype(int32)
+    sq = torch.clamp(((score - lo) / width * 1023.0).to(torch.int32), 0, 1023)
+    key = torch.where(valid, ((h >> 10) << 10) | (1023 - sq), _SENTINEL)
+    _, cx_s, cy_s, cz_s, x_s, y_s, z_s, int_s, valid_s = sort_with_payload(
+        key, coords[:, 0], coords[:, 1], coords[:, 2], xyz[:, 0], xyz[:, 1], xyz[:, 2], intensity, valid,
+    )
+    winner = _first_of_runs(cx_s, cy_s, cz_s) & valid_s
+    seg = torch.cumsum(winner, 0) - 1  # winner rank
+    n_cells = torch.sum(winner)
+    ratio = max_out / torch.clamp(n_cells, min=1).to(dtype)
+    row = torch.floor(seg.to(dtype) * ratio).long()
+    prev_row = torch.floor((seg - 1).to(dtype) * ratio).long()
+    kept = (seg == 0) | (row > prev_row)
+    slot = torch.where(
+        n_cells > max_out,
+        torch.where(winner & kept, torch.clamp(row, max=max_out - 1), _SENTINEL),
+        torch.where(winner, seg, _SENTINEL),
+    )
+    sk, ox, oy, oz, oi = sort_with_payload(slot, x_s, y_s, z_s, int_s)
+    out_ok = _takepad(sk, max_out, _SENTINEL) < _SENTINEL
+    m = out_ok.to(dtype)
+    out_xyz = torch.stack([_takepad(a, max_out, 0.0) * m for a in (ox, oy, oz)], dim=1)
+    return out_xyz, _takepad(oi, max_out, 0.0) * m, out_ok
+
+
+def score_range(score: torch.Tensor, valid: torch.Tensor):
+    """(lo, width) of the valid scores; 0 and 1 where none is valid."""
+    smax = torch.max(torch.where(valid, score, -torch.inf))
+    smin = torch.min(torch.where(valid, score, torch.inf))
+    lo = torch.where(torch.isfinite(smin), smin, 0.0)
+    hi = torch.where(torch.isfinite(smax), smax, 1.0)
+    return lo, torch.clamp(hi - lo, min=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 
 Port of ``tloam_tpu/pipeline/frontend.py`` (the reference's FrontEnd,
 src/front_end/front_end.cpp:14-338): close-point filtering, ground removal,
-object compaction, DCVC clustering, edge extraction, cell-mode PCA
-features and sector picks, voxel downsampling, the scan-to-map TLS-GNC
-solve, and the submap update, for one frame per call.
+object compaction, DCVC clustering, edge extraction, PCA features and
+sector picks (with the optional planar coverage fill), voxel downsampling,
+the scan-to-map TLS-GNC solve, the submap update and the optional 1.0 m
+global map, for one frame per call, under every PipelineConfig the JAX
+step accepts.
 
 Device and host: every tensor of a frame stays on the state's device. The
 first-frame branch is plain Python on the host-int ``frame_idx``; the
@@ -60,21 +62,10 @@ class OdometryState(NamedTuple):
     last_pose: torch.Tensor
     predict: torch.Tensor
     frame_idx: int  # host int: the first-frame branch is plain Python
-    global_map: Cloud  # capacity 1 (mapping_flag is not ported)
+    global_map: Cloud  # 1.0 m global map (capacity 1 when mapping_flag is off)
     unhealthy_streak: torch.Tensor  # () int32
     nev_streak: torch.Tensor  # () int32
     imp_streak: torch.Tensor  # () int32
-
-
-def _check_cfg(cfg: PipelineConfig) -> None:
-    if cfg.frame_planar_fill:
-        raise NotImplementedError("tloam_torch: frame_planar_fill > 0 is not ported yet (ROADMAP A14)")
-    if cfg.odometry.mapping_flag:
-        raise NotImplementedError("tloam_torch: mapping_flag is not ported yet (ROADMAP A14)")
-    if cfg.sphere_submap_from_planar:
-        raise NotImplementedError("tloam_torch: sphere_submap_from_planar is not ported yet (ROADMAP A14)")
-    if cfg.sphere_index_bug:
-        raise NotImplementedError("tloam_torch: sphere_index_bug is not ported yet (ROADMAP A14)")
 
 
 # ---------------------------------------------------------------------------
@@ -125,10 +116,18 @@ def preprocess_frame(raw: Cloud, cfg: PipelineConfig) -> ScanFeatures:
         general_cloud = clusters.segmented.mask(edges.general_mask)
 
     with STAGES.stage("features"):
-        sel = features.extract_planar_sphere(general_cloud, cfg.feature)
+        sel = features.extract_planar_sphere(general_cloud, cfg.feature, sphere_index_bug=cfg.sphere_index_bug)
         flat = sel.pca.flatness
         S = cfg.pick_sectors
         planar_frame = features.gather_top(general_cloud, sel.planar_submap, flat, cfg.frame_planar_cap, sectors=S)
+        if cfg.frame_planar_fill:
+            # additive coverage fill (PipelineConfig.frame_planar_fill): the
+            # flattest original point of each frame_planar_voxel cell
+            fill = voxel.voxel_select_top(
+                general_cloud.xyz, general_cloud.intensity, sel.planar_submap & general_cloud.valid, flat,
+                cfg.frame_planar_voxel, cfg.frame_planar_fill,
+            )
+            planar_frame = planar_frame.concat(Cloud(*fill))
         sphere_frame = features.gather_top(general_cloud, sel.sphere_submap, flat, cfg.frame_sphere_cap, sectors=S)
         sphere_scan = features.gather_top(general_cloud, sel.sphere_scan, flat, od.scan_sphere_cap, sectors=S)
         planar_scan = features.gather_top(general_cloud, sel.planar_scan, flat, od.scan_planar_cap, sectors=S)
@@ -183,7 +182,10 @@ def _flatten_window(frames: Cloud, poses: torch.Tensor) -> Cloud:
 
 def submap_features(state: SubmapState, cfg: PipelineConfig) -> FeatureSet:
     planar = _flatten_window(state.planar_frames, state.frame_poses)
-    sphere = _flatten_window(state.sphere_frames, state.sphere_poses)
+    if cfg.sphere_submap_from_planar:
+        sphere = planar  # reference quirk: both submaps from the planar deque (front_end.cpp:240,253)
+    else:
+        sphere = _flatten_window(state.sphere_frames, state.sphere_poses)
     return FeatureSet(edge=state.edge_map, sphere=sphere, planar=planar, ground=state.ground_map)
 
 
@@ -253,7 +255,6 @@ def seed_submap(state: SubmapState, feats: ScanFeatures, cfg: PipelineConfig) ->
 def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> OdometryState:
     """Empty state on `device` (``cuda`` unless the caller asks for another;
     raises when no GPU is present and no device was named)."""
-    _check_cfg(cfg)
     dev = _device.resolve(device)
     eye = torch.eye(4, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -263,7 +264,8 @@ def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> Odometr
         last_pose=eye.clone(),
         predict=eye.clone(),
         frame_idx=0,
-        global_map=Cloud.empty(1, dtype, device=dev),
+        global_map=Cloud.empty(cfg.odometry.global_map_cap if cfg.odometry.mapping_flag else 1, dtype,
+                               device=dev),
         unhealthy_streak=zero.clone(),
         nev_streak=zero.clone(),
         imp_streak=zero.clone(),
@@ -281,6 +283,18 @@ def _where_submap(c: torch.Tensor, new: SubmapState, old: SubmapState) -> Submap
     return SubmapState(*out)
 
 
+def _accumulate_global_map(state_map: Cloud, raw: Cloud, pose: torch.Tensor, cfg: PipelineConfig) -> Cloud:
+    """The optional 1.0 m global map (front_end.cpp:269-274): the raw scan in
+    the world frame, downsampled, merged and downsampled again."""
+    od = cfg.odometry
+    world = raw.transform(pose)
+    new = Cloud(*voxel.voxel_downsample(world.xyz, world.intensity, world.valid, od.global_map_voxel,
+                                        od.global_map_cap // 8))
+    merged = state_map.concat(new)
+    return Cloud(*voxel.voxel_downsample(merged.xyz, merged.intensity, merged.valid, od.global_map_voxel,
+                                         od.global_map_cap))
+
+
 def _first_frame(st: OdometryState, feats: ScanFeatures, raw: Cloud, cfg: PipelineConfig):
     dtype, dev = raw.xyz.dtype, raw.device
     mi = cfg.odometry.tls.max_iterations
@@ -296,10 +310,11 @@ def _first_frame(st: OdometryState, feats: ScanFeatures, raw: Cloud, cfg: Pipeli
         aligned_trace=torch.zeros(mi, dtype=torch.bool, device=dev),
     )
     submap = seed_submap(st.submap, feats, cfg)
-    return st._replace(submap=submap, frame_idx=st.frame_idx + 1), st.pose, diag
+    gmap = _accumulate_global_map(st.global_map, raw, st.pose, cfg) if cfg.odometry.mapping_flag else st.global_map
+    return st._replace(submap=submap, frame_idx=st.frame_idx + 1, global_map=gmap), st.pose, diag
 
 
-def _normal_frame(st: OdometryState, feats: ScanFeatures, cfg: PipelineConfig):
+def _normal_frame(st: OdometryState, feats: ScanFeatures, raw: Cloud, cfg: PipelineConfig):
     od = cfg.odometry
     submap = submap_features(st.submap, cfg)
     # fallback veto at frame 1 and after 3 consecutive fallbacks
@@ -337,10 +352,11 @@ def _normal_frame(st: OdometryState, feats: ScanFeatures, cfg: PipelineConfig):
             if od.gate_never_aligned:
                 push = push & ~(nev & (nev_streak <= od.submap_gate_streak))
             new_submap = _where_submap(push, new_submap, st.submap)
+        gmap = _accumulate_global_map(st.global_map, raw, pose, cfg) if od.mapping_flag else st.global_map
     return (
         OdometryState(
             submap=new_submap, pose=pose, last_pose=pose, predict=predict,
-            frame_idx=st.frame_idx + 1, global_map=st.global_map,
+            frame_idx=st.frame_idx + 1, global_map=gmap,
             unhealthy_streak=streak, nev_streak=nev_streak, imp_streak=imp_streak,
         ),
         pose,
@@ -351,12 +367,11 @@ def _normal_frame(st: OdometryState, feats: ScanFeatures, cfg: PipelineConfig):
 def odometry_step(state: OdometryState, raw: Cloud, cfg: PipelineConfig):
     """Process one scan on the state's device; returns (state', world_T_scan
     pose, diagnostics)."""
-    _check_cfg(cfg)
     feats = preprocess_frame(raw, cfg)
     if state.frame_idx == 0:
         state, pose, diag = _first_frame(state, feats, raw, cfg)
     else:
-        state, pose, diag = _normal_frame(state, feats, cfg)
+        state, pose, diag = _normal_frame(state, feats, raw, cfg)
     diag = diag._replace(
         box_min=feats.box_min, box_max=feats.box_max, box_valid=feats.box_valid,
         num_clusters=feats.num_clusters,
