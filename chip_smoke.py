@@ -36,11 +36,29 @@ no result):
                    syncs, profiled frame, hot-operation times, and the JAX
                    package's own numbers on the same drives and the limits
                    derived from them (JAX_REF)
-  7. kernels       one line per kernel: launches in all drives, kernel and
+  7. parallel      tloam_torch.parallel at full width on entries captured
+                   from frames 3-10 of phase 4's drive (the port's own scan
+                   features, submap and prediction before each frame): the
+                   batched solve at B = 1, 8 and 64 (the 8 tiled 8 times,
+                   each copy's planar cloud with seeded 2 mm noise) against
+                   one-frame solves (poses within 5e-3 m and 1e-3 rad);
+                   one solve at B = 1 and at B = 64 (64 copies of one
+                   entry) must issue the same host syncs, the same aten
+                   operations and the same kernel launches outside the
+                   library calls that pick their kernels by size (cuBLAS,
+                   cuSOLVER, CUB sorts; those are printed beside);
+                   frames/s at B = 8 and 64 against a loop of one-frame
+                   solves, device busy share and peak memory; spawned ranks
+                   on the one card: the consensus solve of the frame-4 entry
+                   on 2 gloo ranks (NCCL refuses two ranks on one GPU), with
+                   and without binding caps, a 1-rank NCCL run of it, and
+                   the 8 entries frames-sharded 4 + 4
+  8. kernels       one line per kernel: launches in all drives, kernel and
                    plain-version times, bound, agreement
 
 The last two lines are the card (`nvidia-smi --query-gpu=name,power.limit`)
-and {"ok": true, "device": {...}}.
+and {"ok": true, "device": {...}}. `--worker` runs one spawned rank of
+phase 7 (the script starts them itself).
 """
 from __future__ import annotations
 
@@ -486,7 +504,314 @@ def run_mode(mode: str, bench_gt, bench_scans):
     return ok_m, launches
 
 
+# phase 7: the batched, frame-sharded and consensus solves of tloam_torch.parallel
+PAR_FRAMES = range(3, 11)  # frames 3-10 of the bench drive: B = 8 distinct entries
+PAR_TILE = 8  # B = 64: those 8 tiled 8 times, each copy's planar cloud with its own noise
+PAR_BIG = PAR_TILE * len(PAR_FRAMES)  # 64, also the copies of entry 0 in the counts
+PAR_NOISE_M = 0.002
+PAR_SEED = 0
+PAR_CONSENSUS = 1  # the entry of frame 4
+POSE_TOL_M, POSE_TOL_RAD = 5e-3, 1e-3
+INT_DIAGS = ("iterations", "num_corr", "corr_trace", "coarse_trace", "aligned_trace")
+RANK_TIMEOUT_S = 60  # a collective that waits longer fails the rank
+JOIN_TIMEOUT_S = 300
+# aten operations whose CUDA implementation picks its kernels, and how many
+# it launches, by the size of its input: cuBLAS products, cuSOLVER's eigen
+# solve and inverse, CUB's sorts (an accumulating index_put_ sorts its
+# indices)
+LIBRARY_OPS = frozenset((
+    "aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm", "aten::linalg_eigh", "aten::_linalg_eigh",
+    "aten::linalg_inv_ex", "aten::linalg_lu_factor_ex", "aten::sort", "aten::index_put_", "aten::_index_put_impl_",
+))
+
+
+def capture_entries(cfg, scans):
+    """(scan features, submap features, prediction) of frames 3-10 of the
+    bench drive, each captured from the port's own state before the frame,
+    as scripts/batched_bench.py:36-80 does: preprocess_frame (one edge
+    kernel launch), submap_features of the state before the frame, and
+    state.predict. The state steps through frames 0-10."""
+    import torch
+
+    from tloam_torch.cloud import Cloud
+    from tloam_torch.pipeline import frontend
+
+    state = frontend.init_state(cfg)
+    entries = []
+    for i, (q, n) in enumerate(scans[: PAR_FRAMES.stop]):
+        raw = Cloud.from_packed(torch.as_tensor(q).to(state.pose.device), n)
+        if i in PAR_FRAMES:
+            feats = frontend.preprocess_frame(raw, cfg)
+            entries.append((feats.scan, frontend.submap_features(state.submap, cfg), state.predict.clone()))
+        state, _, _ = frontend.odometry_step(state, raw, cfg)
+    return entries
+
+
+def pose_gaps(a, b):
+    """(largest translation gap m, largest rotation gap rad) between two
+    (B,4,4) pose stacks."""
+    import torch
+
+    from tloam_torch.ops import se3
+
+    d = torch.linalg.inv(b.double()) @ a.double()
+    return float(d[:, :3, 3].norm(dim=-1).max()), float(se3.log_so3(d[:, :3, :3]).norm(dim=-1).max())
+
+
+def kernel_launches(fn):
+    """(result, kernel launch calls the host issued, those made inside a
+    LIBRARY_OPS operation, device kernel records, Counter of launches by
+    the innermost tloam_torch source line) of one traced call of fn. The
+    launch calls are exact; the profiler drops a few device records of a
+    13k-kernel trace now and then, so those vary by a few from run to
+    run."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    records = sum(ev.device_type == DeviceType.CUDA and not ev.name.startswith(("Memcpy", "Memset"))
+                  for ev in events)
+    sites = collections.Counter()
+    library = 0
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and "LaunchKernel" in ev.name:
+            p, frame, chain, lib = ev.cpu_parent, None, [], False
+            while p is not None:
+                lib = lib or p.name in LIBRARY_OPS
+                if frame is None:
+                    frame = next((f for f in (p.stack or []) if "tloam_torch" in f), None)
+                    chain.append(p.name if frame is None and not p.stack else (p.stack or ["?"])[0])
+                p = p.cpu_parent
+            library += lib
+            sites[(frame or " < ".join(chain[:6])).split("tloam_torch/")[-1]] += 1
+    return out, sum(sites.values()), library, records, sites
+
+
+def parallel_worker(job: str, addr: str, world: int, rank: int, workdir: str) -> int:
+    """One rank of phase 7's spawned runs. job "gloo": the consensus solves
+    of the frame-4 entry (scan halves over the ranks) with and without
+    binding caps, then the frames-sharded solve of the 8 entries; job
+    "nccl": the uncapped consensus solve in a group of one."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from tloam_torch.config import TLSConfig
+    from tloam_torch.cloud import map_tensors
+    from tloam_torch.parallel import batched, mesh as mesh_lib
+
+    torch.cuda.set_device(0)
+    mesh_lib.bootstrap_distributed(addr, world, rank, backend=job, timeout_s=RANK_TIMEOUT_S)
+    inp = torch.load(Path(workdir) / "inputs.pt", weights_only=False)  # written by run_parallel
+    cuda = lambda tree: map_tensors(tree, lambda x: x.cuda())  # noqa: E731
+    tls = TLSConfig(**inp["tls"])
+    points = mesh_lib.make_mesh(frames=1)  # 1 x world
+    out = {}
+    for name in ("uncapped", "capped") if job == "gloo" else ("uncapped",):
+        cfg = dataclasses.replace(tls, **inp["caps"]) if name == "capped" else tls
+        pose, diag = batched.distributed_scan_matching(*cuda(inp["consensus"]), cfg, points)
+        out[name] = (pose.cpu(), diag.num_corr.cpu(), diag.iterations.cpu())
+    if job == "gloo":
+        frames = mesh_lib.make_mesh()  # world x 1
+        poses, diags = batched.sharded_scan_matching(*cuda(inp["entries"]), tls, frames)
+        out["sharded"] = (poses.cpu(), diags.iterations.cpu())
+    torch.cuda.synchronize()
+    torch.save(out, Path(workdir) / f"{job}{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(job: str, world: int, workdir: Path):
+    """Run `world` ranks of parallel_worker(job) and return their outputs;
+    a rank that fails or outlives JOIN_TIMEOUT_S fails the phase."""
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--worker", job, addr, str(world),
+                               str(r), str(workdir)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=JOIN_TIMEOUT_S)[0].decode())
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            print(log[-3000:], file=sys.stderr)
+            raise RuntimeError(f"{job} rank failed with {p.returncode}")
+    return [torch.load(workdir / f"{job}{r}.pt") for r in range(world)]
+
+
+def run_parallel(cfg, scans) -> tuple[bool, int]:
+    """Phase 7 (tloam_torch.parallel at full width); one JSON line. Returns
+    (ok, edge kernel launches)."""
+    import collections
+    import dataclasses
+
+    import torch
+
+    from tloam_torch.cloud import Cloud, map_tensors, stack_tensors
+    from tloam_torch.models import edge, registration
+    from tloam_torch.parallel import batched
+    from tloam_torch.utils.op_count import count_ops
+
+    tls = cfg.odometry.tls
+    edge.LAUNCHES = 0
+    entries = capture_entries(cfg, scans)
+    launches = edge.LAUNCHES
+    dev = entries[0][2].device
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    noisy = []
+    for _ in range(PAR_TILE):
+        for s, m, p in entries:
+            xyz = s.planar.xyz + torch.randn(s.planar.xyz.shape, generator=gen, device=dev) * PAR_NOISE_M
+            noisy.append((s._replace(planar=Cloud(xyz, s.planar.intensity, s.planar.valid)), m, p))
+    sets = {1: entries[:1], 8: entries, PAR_BIG: noisy}
+
+    # batched against one-frame solves; the one-frame loop is the rate baseline
+    check, single_s, singles, batched_out = {}, {}, {}, {}
+    for B, ents in sets.items():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = [registration.scan_matching(*e, tls) for e in ents]
+        torch.cuda.synchronize()
+        single_s[B] = time.perf_counter() - t
+        singles[B] = outs
+        pose_b, diag_b = batched.vmap_scan_matching(*stack_tensors(ents), tls)
+        batched_out[B] = (pose_b, diag_b)
+        gap_m, gap_rad = pose_gaps(pose_b, torch.stack([o[0] for o in outs]))
+        differ = sum(
+            any(not torch.equal(getattr(diag_b, k)[b], getattr(o[1], k)) for k in INT_DIAGS) for b, o in enumerate(outs)
+        )
+        check[B] = {"gap_m": gap_m, "gap_rad": gap_rad, "entries_int_diags_differ": differ,
+                    "rounds": diag_b.iterations.tolist() if B <= 8 else [int(diag_b.iterations.min()),
+                                                                          int(diag_b.iterations.max())]}
+    ok_check = all(c["gap_m"] < POSE_TOL_M and c["gap_rad"] < POSE_TOL_RAD for c in check.values())
+
+    # a batch axis, not a loop: at B = 1 and at B = 64 exact copies of entry
+    # 0 (identical branches) one solve issues the same host syncs, the same
+    # aten operations and the same kernel launches outside LIBRARY_OPS
+    # (launches: three traced solves each)
+    counts = {}
+    for B in (1, PAR_BIG):
+        batch = stack_tensors(entries[:1] * B)
+
+        def solve(batch=batch):
+            return batched.vmap_scan_matching(*batch, tls)
+
+        count_syncs(solve)  # one-time syncs and table copies of the first call
+        (_, diag), sites = count_syncs(solve)
+        _, ops = count_ops(solve)
+        runs = [kernel_launches(solve) for _ in range(3)]
+        rounds = int(diag.iterations.max())
+        counts[B] = {"rounds": rounds, "host_syncs": sum(sites.values()),
+                     "host_syncs_per_round": sum(sites.values()) / rounds, "sync_sites": sites,
+                     "aten_ops": sum(ops.values()), "kernel_launches": [r[1] for r in runs],
+                     "library_launches": [r[2] for r in runs],
+                     "launches_outside_library": [r[1] - r[2] for r in runs],
+                     "device_kernel_records": [r[3] for r in runs], "launch_sites": runs[0][4], "ops": ops}
+    for key, name in (("ops", "aten_ops_64_minus_1"), ("launch_sites", "launches_by_site_64_minus_1")):
+        diff = collections.Counter(counts[PAR_BIG].pop(key))
+        diff.subtract(counts[1].pop(key))
+        counts[name] = {k: v for k, v in diff.items() if v}
+    counts["library_ops"] = sorted(LIBRARY_OPS)
+    big = counts[PAR_BIG]
+    ok_counts = (counts[1]["host_syncs"] == big["host_syncs"] and not counts["aten_ops_64_minus_1"]
+                 and len(set(counts[1]["launches_outside_library"] + big["launches_outside_library"])) == 1)
+
+    # rates, device busy share and peak memory of the batched solve
+    rates = {}
+    for B, reps in ((8, 3), (PAR_BIG, 2)):
+        batch = stack_tensors(sets[B])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            batched.vmap_scan_matching(*batch, tls)
+        torch.cuda.synchronize()
+        batched_s = (time.perf_counter() - t) / reps
+        _, busy_ms, wall_ms, top = profile_frame(lambda: batched.vmap_scan_matching(*batch, tls))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        batched.vmap_scan_matching(*batch, tls)
+        torch.cuda.synchronize()
+        rates[B] = {"batched_frames_per_s": B / batched_s, "batched_solve_ms": 1e3 * batched_s,
+                    "single_loop_frames_per_s": B / single_s[B], "single_solve_ms": 1e3 * single_s[B] / B,
+                    "profiled_solve": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                                       "idle_share": 1.0 - busy_ms / wall_ms, "top_device_ms": top},
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "solve_peak_mem_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+    # consensus (the frame-4 entry's scan halves on two ranks of one card)
+    # and the frames-sharded batch, in spawned processes
+    workdir = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+    workdir.mkdir(parents=True, exist_ok=True)
+    ref_pose, ref_diag = singles[8][PAR_CONSENSUS]
+    n_planar, n_ground = ref_diag.num_corr[:2].tolist()
+    caps = {"planar_maxnum": n_planar // 2, "ground_maxnum": n_ground // 2}
+    cap_pose, cap_diag = registration.scan_matching(*entries[PAR_CONSENSUS], dataclasses.replace(tls, **caps))
+    cpu = lambda x: x.cpu()  # noqa: E731
+    torch.save({"tls": dataclasses.asdict(tls), "caps": caps,
+                "consensus": map_tensors(entries[PAR_CONSENSUS], cpu),
+                "entries": map_tensors(stack_tensors(entries), cpu)}, workdir / "inputs.pt")
+    t = time.perf_counter()
+    gloo = spawn_ranks("gloo", 2, workdir)
+    nccl = spawn_ranks("nccl", 1, workdir)
+    ranks_s = time.perf_counter() - t
+
+    def consensus(out, pose, diag):
+        gap_m, gap_rad = pose_gaps(out[0][None].to(dev), pose[None])
+        return {"gap_m": gap_m, "gap_rad": gap_rad, "num_corr": out[1].tolist(), "single_num_corr":
+                diag.num_corr.tolist(), "rounds": int(out[2]), "single_rounds": int(diag.iterations),
+                "ok": gap_m < POSE_TOL_M and gap_rad < POSE_TOL_RAD and out[1].tolist() == diag.num_corr.tolist()}
+
+    cons = {
+        "backend": "gloo: NCCL refuses two ranks on one GPU", "ranks": 2,
+        "uncapped": [consensus(r["uncapped"], ref_pose, ref_diag) for r in gloo],
+        "capped": [consensus(r["capped"], cap_pose, cap_diag) for r in gloo], "caps": caps,
+        "caps_bind": cap_diag.num_corr[:2].tolist() == [caps["planar_maxnum"], caps["ground_maxnum"]],
+        "nccl_1_rank": consensus(nccl[0]["uncapped"], ref_pose, ref_diag),
+    }
+    pose8 = batched_out[8][0]
+    sharded = [pose_gaps(r["sharded"][0].to(dev), pose8) for r in gloo]
+    shard = {"ranks": 2, "frames_each": 4, "backend": "gloo", "gap_m": max(g[0] for g in sharded),
+             "gap_rad": max(g[1] for g in sharded)}
+    ok_ranks = (all(c["ok"] for c in cons["uncapped"] + cons["capped"]) and cons["caps_bind"]
+                and cons["nccl_1_rank"]["ok"] and shard["gap_m"] < POSE_TOL_M and shard["gap_rad"] < POSE_TOL_RAD)
+    ok = bool(ok_check and ok_counts and ok_ranks and launches == PAR_FRAMES.stop + len(PAR_FRAMES))
+    emit({"phase": "parallel", "entries": {"frames": [PAR_FRAMES.start, PAR_FRAMES.stop - 1], "B": sorted(sets),
+                                           "noise_m": PAR_NOISE_M, "noise_seed": PAR_SEED},
+          "tolerance": {"m": POSE_TOL_M, "rad": POSE_TOL_RAD}, "batched_vs_single": check, "counts": counts,
+          "rates": rates, "consensus": cons, "frames_sharded": shard, "spawned_runs_s": ranks_s,
+          "edge_pick_launches": launches, "ok": ok})
+    return ok, launches
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--worker", nargs=5, metavar=("JOB", "ADDR", "WORLD", "RANK", "DIR"),
+                    help="run one rank of the parallel phase's spawned runs (used by the script itself)")
+    args = ap.parse_args()
+    if args.worker:
+        job, addr, world, rank, workdir = args.worker
+        return parallel_worker(job, addr, int(world), int(rank), workdir)
+
     import torch
 
     # ---- 1. device ----
@@ -607,7 +932,13 @@ def main() -> int:
         if not ok_m:
             return 1
 
-    # ---- 7. kernels ----
+    # ---- 7. parallel ----
+    ok_p, par_launches = run_parallel(cfg, scans)
+    launches += par_launches
+    if not ok_p:
+        return 1
+
+    # ---- 8. kernels ----
     emit({"kernels": [{
         "name": "edge_pick", "route": "cuda", "source": "tloam_torch/csrc/edge_pick.cu",
         "replaces": "tloam_tpu/models/edge.py:166", "launches": launches,

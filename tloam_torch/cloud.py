@@ -154,3 +154,30 @@ class Cloud:
             intensity=torch.cat([self.intensity, other.intensity], dim=-1),
             valid=torch.cat([self.valid, other.valid], dim=-1),
         )
+
+
+def map_tensors(x, fn):
+    """Apply fn to every tensor of a tree of Clouds, NamedTuples (a
+    FeatureSet, a table) and tuples; other leaves stay as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, Cloud):
+        return Cloud(fn(x.xyz), fn(x.intensity), fn(x.valid))
+    if isinstance(x, tuple):
+        vals = (map_tensors(v, fn) for v in x)
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def stack_tensors(trees):
+    """Equal trees (as map_tensors walks them) -> one tree whose every
+    tensor is the stack of theirs along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, Cloud):
+        return Cloud(*(torch.stack([getattr(t, f) for t in trees]) for f in ("xyz", "intensity", "valid")))
+    if isinstance(first, tuple):
+        vals = (stack_tensors(list(x)) for x in zip(*trees))
+        return type(first)(*vals) if hasattr(first, "_fields") else tuple(vals)
+    return first

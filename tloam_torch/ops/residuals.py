@@ -60,7 +60,7 @@ def plane_to_plane(T, source, source_cov, target, target_cov, weight):
     array on the host, a sync per call. Like jnp.linalg.inv, a singular
     system gives non-finite values instead of an error (the regularized
     covariances never are)."""
-    R = T[..., :3, :3]
+    R = T[..., None, :3, :3]  # against the (..., N, 3, 3) covariances
     pw = se3.transform(T, source)
     M = torch.linalg.inv_ex(target_cov + R @ source_cov @ R.transpose(-1, -2))[0]
     r = (M @ (target - pw)[..., None])[..., 0] * weight[..., None]

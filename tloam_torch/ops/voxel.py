@@ -17,7 +17,12 @@ Exactness notes:
   * `block_window_moments` sums float moments with an accumulating
     `index_put_`, which adds each cell's points in input order on every
     device, so a run repeats bit for bit; its outputs agree with the JAX
-    module to float32 rounding (1e-5 relative), not bit for bit.
+    module to float32 rounding (1e-5 relative), not bit for bit;
+  * the tables and lookups the solver calls take an optional leading frame
+    axis (see "Frame axis" below): frame f of a batch holds exactly the
+    one-frame call's cells, buckets, drops and payloads on frame f; the
+    window moments' one matrix product may round a frame differently where
+    the library picks its kernel by the batch's size.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from tloam_torch.cloud import map_tensors
 
 # Spatial-hash constants (linear forms, see tloam_tpu/ops/voxel.py:39-47)
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -181,6 +188,57 @@ def voxel_downsample(xyz, intensity, valid, voxel_size: float, max_out: int):
 
 
 # ---------------------------------------------------------------------------
+# Frame axis. Every table builder and lookup below takes an optional leading
+# frame axis F: points (F, n, 3), valid (F, n), and so on; the tables then
+# carry it too. Frame f's table is exactly the one-frame call's on frame f.
+# The F frames are built by 1-D operations over all F*n entries: each sort
+# runs on one int64 key with the frame index in its high bits (a stable
+# sort keeps every frame's own order), each scan restarts at the frame
+# starts, each scatter target and table row is offset by f x capacity.
+# So the host issues the same operations whatever F is.
+# ---------------------------------------------------------------------------
+
+
+def _enframe(x):
+    """One frame -> a batch of one (every tensor gains a leading axis)."""
+    return map_tensors(x, lambda t: t[None])
+
+
+def _unframe(x):
+    """A batch of one -> the frame (inverse of _enframe)."""
+    return map_tensors(x, lambda t: t[0])
+
+
+def _frame_offsets(F: int, size: int, like: torch.Tensor) -> torch.Tensor:
+    """(F, 1, ..., 1) int64 offsets f * size, broadcasting against `like`."""
+    return (torch.arange(F, device=like.device) * size).view((F,) + (1,) * (like.ndim - 1))
+
+
+def take(src: torch.Tensor, idx: torch.Tensor, frames: bool) -> torch.Tensor:
+    """src[idx] along src's leading point axis; with `frames`, src (F, M, ...)
+    and idx (F, ...) index frame by frame."""
+    if not frames:
+        return src[idx]
+    F, M = src.shape[:2]
+    return src.reshape((F * M,) + src.shape[2:])[idx + _frame_offsets(F, M, idx)]
+
+
+def _frame_key(key: torch.Tensor) -> torch.Tensor:
+    """(F, n) int32 keys -> one (F*n,) int64 key ordered by frame, then by
+    key: frame in bits 33 and up, key + 2^31 below."""
+    k = key.to(torch.int64) + 2**31
+    return (k + (torch.arange(key.shape[0], device=key.device)[:, None] << 33)).reshape(-1)
+
+
+def cumsum_frames(x: torch.Tensor, F: int) -> torch.Tensor:
+    """Inclusive int64 cumsum of a (F*n,) tensor, restarting at each frame:
+    one 1-D scan less each frame's starting value."""
+    x = x.to(torch.int64).view(F, -1)
+    cs = torch.cumsum(x.view(-1), 0).view(F, -1)
+    return (cs - (cs[:, :1] - x[:, :1])).view(-1)
+
+
+# ---------------------------------------------------------------------------
 # Direct-addressed (bucketized) hash table
 # ---------------------------------------------------------------------------
 
@@ -195,47 +253,54 @@ def _check_code(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
 
 
 class DirectTable(NamedTuple):
-    """B buckets of 8 (check, payload) slots: check/payload (B, 8) int32;
-    empty slots hold SENTINEL in check. B = next_pow2(max(V, 64))."""
+    """B buckets of 8 (check, payload) slots: check/payload ([F,] B, 8)
+    int32; empty slots hold SENTINEL in check. B = next_pow2(max(V, 64))."""
 
     check: torch.Tensor
     payload: torch.Tensor
 
 
 def build_direct_table(keys, keys2, valid, payload) -> DirectTable:
-    """Insert V entries: one stable sort by bucket gives each entry its
-    in-bucket rank; ranks >= 8 are dropped (tloam_tpu/ops/voxel.py:328)."""
-    V = keys.shape[0]
+    """Insert V entries ([F,] V each): one stable sort by bucket gives each
+    entry its in-bucket rank; ranks >= 8 are dropped
+    (tloam_tpu/ops/voxel.py:328)."""
+    if keys.ndim == 1:
+        return _unframe(build_direct_table(keys[None], keys2[None], valid[None], payload[None]))
+    F, V = keys.shape
     dev = keys.device
     B = 1 << int(np.ceil(np.log2(max(V, 64))))
     H = B * _BUCKET
-    check = _check_code(keys, keys2)
+    check = _check_code(keys, keys2).view(-1)
     bucket = torch.where(valid, keys & (B - 1), B)
-    b_s, order = torch.sort(bucket, stable=True)
-    check_s, pay_s, valid_s = check[order], payload[order].to(torch.int32), valid[order]
-    idx = torch.arange(V, device=dev)
-    first = _first_of_runs(b_s)
-    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    b_s, order = torch.sort(_frame_key(bucket), stable=True)
+    check_s, pay_s, valid_s = check[order], payload.reshape(-1)[order].to(torch.int32), valid.reshape(-1)[order]
+    idx = torch.arange(F * V, device=dev)
+    start = torch.cummax(torch.where(_first_of_runs(b_s), idx, 0), 0).values
     rank = idx - start
-    tgt = torch.where(valid_s & (rank < _BUCKET), b_s.long() * _BUCKET + rank, H)
-    c = torch.full((H + 1,), _SENTINEL, dtype=torch.int32, device=dev)
-    p = torch.full((H + 1,), _SENTINEL, dtype=torch.int32, device=dev)
+    # slot (frame, bucket, rank) -> frame*H + bucket*8 + rank; one drop slot F*H
+    slot = (b_s >> 33) * H + ((b_s & 0xFFFFFFFF) - 2**31) * _BUCKET + rank
+    tgt = torch.where(valid_s & (rank < _BUCKET), slot, F * H)
+    c = torch.full((F * H + 1,), _SENTINEL, dtype=torch.int32, device=dev)
+    p = torch.full((F * H + 1,), _SENTINEL, dtype=torch.int32, device=dev)
     c[tgt] = check_s
     p[tgt] = pay_s
-    return DirectTable(c[:H].view(B, _BUCKET), p[:H].view(B, _BUCKET))
+    return DirectTable(c[: F * H].view(F, B, _BUCKET), p[: F * H].view(F, B, _BUCKET))
 
 
 def direct_lookup(table: DirectTable, h1: torch.Tensor, h2: torch.Tensor):
-    """Vectorized lookup for any shape. Returns (found bool, payload int32;
-    0 where not found)."""
-    B = table.check.shape[0]
+    """Vectorized lookup for any shape (a table with a frame axis takes
+    queries (F, ...)). Returns (found bool, payload int32; 0 where not
+    found)."""
+    if table.check.ndim == 2:
+        return _unframe(direct_lookup(_enframe(table), h1[None], h2[None]))
+    F, B = table.check.shape[:2]
     shape = h1.shape
-    h1f = h1.reshape(-1)
-    check = _check_code(h1f, h2.reshape(-1))
-    bucket = (h1f & (B - 1)).long()
-    hit = table.check[bucket] == check[:, None]  # at most one slot hits
+    h1f = h1.reshape(F, -1)
+    check = _check_code(h1f, h2.reshape(F, -1))
+    bucket = (h1f & (B - 1)).long() + _frame_offsets(F, B, h1f)
+    hit = table.check.view(F * B, _BUCKET)[bucket] == check[..., None]  # at most one slot hits
     found = hit.any(dim=-1)
-    pay = torch.where(hit, table.payload[bucket], 0).sum(dim=-1).to(torch.int32)
+    pay = torch.where(hit, table.payload.view(F * B, _BUCKET)[bucket], 0).sum(dim=-1).to(torch.int32)
     return found.reshape(shape), pay.reshape(shape)
 
 
@@ -245,8 +310,9 @@ def direct_lookup(table: DirectTable, h1: torch.Tensor, h2: torch.Tensor):
 
 
 class HashGrid(NamedTuple):
-    """pts (M,3) in hash-sorted order, src_idx (M,) original index of each
-    sorted slot, dt cell -> (run start << 8 | count), cell_size (python float)."""
+    """pts ([F,] M, 3) in hash-sorted order, src_idx ([F,] M) original index
+    of each sorted slot, dt cell -> (run start << 8 | count), cell_size
+    (python float)."""
 
     pts: torch.Tensor
     src_idx: torch.Tensor
@@ -255,33 +321,35 @@ class HashGrid(NamedTuple):
 
 
 def build_hash_grid(points, valid, cell_size: float) -> HashGrid:
-    M = points.shape[0]
+    if points.ndim == 2:
+        return _unframe(build_hash_grid(points[None], valid[None], cell_size))
+    F, M = valid.shape
     dev = points.device
     coords = _cell_coords(points, cell_size)
     keys = torch.where(valid, _hash_coords(coords), _SENTINEL)
     keys2 = torch.where(valid, _hash2_coords(coords), 0)
-    keys_s, order = torch.sort(keys, stable=True)
-    keys2_s = keys2[order]
-    run_first = _first_of_runs(keys_s) & (keys_s != _SENTINEL)
-    cell_id = torch.cumsum(run_first, 0) - 1
-    cell_id_c = torch.where(keys_s != _SENTINEL, cell_id, M)
-    pos = torch.arange(M, device=dev, dtype=torch.int32)
-    tgt = torch.where(run_first, cell_id, M)
-    crec = torch.full((M + 1, 3), _SENTINEL, dtype=torch.int32, device=dev)
-    crec[tgt] = torch.stack([pos, keys_s, keys2_s], dim=1)
-    crec = crec[:M]
-    unused = crec[:, 1] == _SENTINEL
-    starts = torch.where(unused, 0, crec[:, 0])
-    cell_key = crec[:, 1]
-    cell_key2 = torch.where(unused, 0, crec[:, 2])
-    counts = torch.zeros(M + 1, dtype=torch.int32, device=dev).index_add_(
-        0, cell_id_c, torch.ones(M, dtype=torch.int32, device=dev)
-    )[:M]
+    fk_s, order = torch.sort(_frame_key(keys), stable=True)
+    keys_s, keys2_s = keys.view(-1)[order], keys2.view(-1)[order]
+    live = keys_s != _SENTINEL
+    run_first = _first_of_runs(fk_s) & live
+    cell_id = cumsum_frames(run_first, F) - 1  # within the frame
+    frame_m = (fk_s >> 33) * M
+    pos = (torch.arange(F * M, device=dev) % M).to(torch.int32)
+    crec = torch.full((F * M + 1, 3), _SENTINEL, dtype=torch.int32, device=dev)
+    crec[torch.where(run_first, frame_m + cell_id, F * M)] = torch.stack([pos, keys_s, keys2_s], dim=1)
+    crec = crec[: F * M].view(F, M, 3)
+    unused = crec[..., 1] == _SENTINEL
+    starts = torch.where(unused, 0, crec[..., 0])
+    cell_key = crec[..., 1]
+    cell_key2 = torch.where(unused, 0, crec[..., 2])
+    counts = torch.zeros(F * M + 1, dtype=torch.int32, device=dev).index_add_(
+        0, torch.where(live, frame_m + cell_id, F * M), torch.ones(F * M, dtype=torch.int32, device=dev)
+    )[: F * M].view(F, M)
     dt = build_direct_table(
         cell_key, cell_key2, cell_key != _SENTINEL,
         starts * 256 + torch.clamp(counts, max=255),
     )
-    return HashGrid(points[order], order, dt, float(cell_size))
+    return HashGrid(points.reshape(F * M, 3)[order].view(F, M, 3), (order % M).view(F, M), dt, float(cell_size))
 
 
 def _hash2_coords(c: torch.Tensor) -> torch.Tensor:
@@ -294,74 +362,79 @@ _OFFS = np.array(
 
 
 def _query_block(grid: HashGrid, queries, query_valid, k: int, r: torch.Tensor, C: int):
-    M = grid.src_idx.shape[0]
-    q = queries.shape[0]
+    """One block of framed queries (F, q, 3) against a framed grid."""
+    F, M = grid.src_idx.shape
+    q = queries.shape[1]
     dev = queries.device
     offs = _device_table("offs", dev)
     qc = _cell_coords(queries, grid.cell_size)
-    nx = qc[:, 0:1] + offs[None, :, 0]
-    ny = qc[:, 1:2] + offs[None, :, 1]
-    nz = qc[:, 2:3] + offs[None, :, 2]
+    nx = qc[..., 0:1] + offs[:, 0]
+    ny = qc[..., 1:2] + offs[:, 1]
+    nz = qc[..., 2:3] + offs[:, 2]
     found, pay = direct_lookup(
         grid.dt, _lin3(nx, ny, nz, _P1, _P2, _P3), _hash2_parts(nx, ny, nz)
-    )  # (q,27)
+    )  # (F,q,27)
     start = (pay >> 8).long()
     count = pay & 255
     ar = torch.arange(C, device=dev)
-    slots = (start[:, :, None] + ar).reshape(q, 27 * C)
+    slots = (start[..., None] + ar).reshape(F, q, 27 * C)
     slots_c = torch.clamp(slots, max=M - 1)
-    within = (ar[None, None, :] < torch.clamp(count, max=C)[:, :, None]).reshape(q, 27 * C)
-    match = within & found.repeat_interleave(C, dim=1)
-    cand = grid.pts[slots_c]  # (q, 27C, 3)
-    dx = cand[..., 0] - queries[:, 0:1]
-    dy = cand[..., 1] - queries[:, 1:2]
-    dz = cand[..., 2] - queries[:, 2:3]
+    within = (ar < torch.clamp(count, max=C)[..., None]).reshape(F, q, 27 * C)
+    match = within & found[..., None].expand(F, q, 27, C).reshape(F, q, 27 * C)
+    cand = take(grid.pts, slots_c, True)  # (F, q, 27C, 3)
+    dx = cand[..., 0] - queries[..., 0:1]
+    dy = cand[..., 1] - queries[..., 1:2]
+    dz = cand[..., 2] - queries[..., 2:3]
     dist_sq = dx * dx + dy * dy + dz * dz
-    ok = match & (dist_sq <= r * r) & query_valid[:, None]
+    ok = match & (dist_sq <= r * r) & query_valid[..., None]
     BIG = torch.finfo(queries.dtype).max
     masked = torch.where(ok, dist_sq, BIG)
     # lax.top_k order: k smallest, ties to the lower candidate index
-    nn_dist, arg = torch.sort(masked, dim=1, stable=True)
-    nn_dist, arg = nn_dist[:, :k], arg[:, :k]
-    nn_slot = torch.gather(slots_c, 1, arg)
-    nn_ok = torch.gather(ok, 1, arg)
-    return grid.src_idx[nn_slot], torch.where(nn_ok, nn_dist, BIG), nn_ok
+    nn_dist, arg = torch.sort(masked, dim=-1, stable=True)
+    nn_dist, arg = nn_dist[..., :k], arg[..., :k]
+    nn_slot = torch.gather(slots_c, -1, arg)
+    nn_ok = torch.gather(ok, -1, arg)
+    return take(grid.src_idx, nn_slot, True), torch.where(nn_ok, nn_dist, BIG), nn_ok
 
 
 def query_knn(grid: HashGrid, queries, query_valid, k: int, radius=None, max_per_cell: int = 8,
               chunk_size: int | None = None):
-    """Batched kNN within `radius` (defaults to the cell size): (idx (Q,k)
-    into the ORIGINAL buffer, dist_sq (Q,k), neighbor_valid (Q,k)). Replaces
+    """Batched kNN within `radius` (defaults to the cell size): (idx ([F,] Q,
+    k) into the ORIGINAL buffer, dist_sq, neighbor_valid). Replaces
     KDTreeFlann::SearchHybrid. With `chunk_size`, queries run in chunks of
     that many, which bounds the candidate gather to chunk_size x 27 x
     max_per_cell points; each query's answer does not depend on the chunk."""
+    if grid.pts.ndim == 2:
+        return _unframe(query_knn(_enframe(grid), queries[None], query_valid[None], k, radius, max_per_cell,
+                                  chunk_size))
     r = torch.full((), grid.cell_size if radius is None else radius, dtype=queries.dtype,
                      device=queries.device)
-    Q = queries.shape[0]
+    Q = queries.shape[1]
     if chunk_size is None or chunk_size >= Q:
         return _query_block(grid, queries, query_valid, k, r, max_per_cell)
     parts = [
-        _query_block(grid, queries[i:i + chunk_size], query_valid[i:i + chunk_size], k, r, max_per_cell)
+        _query_block(grid, queries[:, i:i + chunk_size], query_valid[:, i:i + chunk_size], k, r, max_per_cell)
         for i in range(0, Q, chunk_size)
     ]
-    return tuple(torch.cat(p) for p in zip(*parts))
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
 
 
 def gather_planes(points: torch.Tensor, idx: torch.Tensor):
-    """Neighbour coordinates as three (Q,k) planes."""
-    return points[:, 0][idx], points[:, 1][idx], points[:, 2][idx]
+    """Neighbour coordinates as three ([F,] Q, k) planes."""
+    frames = points.ndim == 3
+    return tuple(take(points[..., a], idx, frames) for a in range(3))
 
 
 def neighbour_covariance(points: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
     """Covariance (a00, a01, a02, a11, a12, a22) of each point's valid
-    neighbours idx (Q,k), from moments about the point itself: raw-coordinate
-    second moments cancel in float32 at map scale."""
+    neighbours idx ([F,] Q, k), from moments about the point itself:
+    raw-coordinate second moments cancel in float32 at map scale."""
     m = ok.to(points.dtype)
     cnt = torch.clamp(torch.sum(m, dim=-1), min=1.0)
     xs, ys, zs = gather_planes(points, idx)
-    xs = (xs - points[:, 0:1]) * m
-    ys = (ys - points[:, 1:2]) * m
-    zs = (zs - points[:, 2:3]) * m
+    xs = (xs - points[..., 0:1]) * m
+    ys = (ys - points[..., 1:2]) * m
+    zs = (zs - points[..., 2:3]) * m
     mx, my, mz = (torch.sum(a, -1) / cnt for a in (xs, ys, zs))
     return (
         torch.sum(xs * xs, -1) / cnt - mx * mx,
@@ -427,9 +500,10 @@ _EB = np.array([[(i >> k) & 1 for i in range(8)] for k in range(3)], np.int32)  
 
 
 class BlockTable(NamedTuple):
-    """cx/cy/cz (V,) int32 cell coords (sentinel where unused), cell_valid
-    (V,), point_cell (N,) cell row per point (-1 invalid), cell_store (V,)
-    block_row * 8 + Morton slot, dt block hash -> block row."""
+    """cx/cy/cz ([F,] V) int32 cell coords (sentinel where unused),
+    cell_valid ([F,] V), point_cell ([F,] N) cell row per point (-1
+    invalid), cell_store ([F,] V) block_row * 8 + Morton slot, dt block hash
+    -> block row."""
 
     cx: torch.Tensor
     cy: torch.Tensor
@@ -446,35 +520,43 @@ def _block_hashes(bx, by, bz):
     return h1, h2
 
 
+def _runs_in_frames(first: torch.Tensor, F: int):
+    """(run index within the frame, frame) of every entry of a frame-major
+    (F*n,) order whose run starts are `first`; every frame starts a run."""
+    n = first.shape[0] // F
+    pos = torch.arange(F * n, device=first.device)
+    return cumsum_frames(first | (pos % n == 0), F) - 1, pos // n
+
+
 def build_block_table(points, valid, cell_size: float, max_cells: int) -> BlockTable:
     """Cell dedup + block dedup + block-hash table (tloam_tpu/ops/voxel.py:672)."""
-    n = points.shape[0]
+    if points.ndim == 2:
+        return _unframe(build_block_table(points[None], valid[None], cell_size, max_cells))
+    F, n = valid.shape
     dev = points.device
     coords = _cell_coords(points, cell_size)
-    coords = torch.where(valid[:, None], coords, _SENTINEL)
+    coords = torch.where(valid[..., None], coords, _SENTINEL)
     pkeys = torch.where(valid, _hash_coords(coords), _SENTINEL)
-    _, order_p = torch.sort(pkeys, stable=True)
-    ps = torch.cat([coords, valid[:, None].to(torch.int32)], dim=1)[order_p]
+    _, order_p = torch.sort(_frame_key(pkeys), stable=True)
+    ps = torch.cat([coords, valid[..., None].to(torch.int32)], dim=-1).view(F * n, 4)[order_p]
     ok_s = ps[:, 3] > 0
-    first = _first_of_runs(ps[:, 0], ps[:, 1], ps[:, 2])
-    seg = torch.cumsum(first, 0) - 1
-    seg_c = torch.where(ok_s & (seg < max_cells), seg, max_cells)
+    seg, frame = _runs_in_frames(_first_of_runs(ps[:, 0], ps[:, 1], ps[:, 2]), F)
+    live = ok_s & (seg < max_cells)
 
     # same-cell writers carry identical rows, so duplicate writes are benign
-    cell_rows = torch.full((max_cells + 1, 4), _SENTINEL, dtype=torch.int32, device=dev)
-    cell_rows[seg_c] = torch.where(ok_s[:, None], ps, _SENTINEL)
-    cell_rows = cell_rows[:max_cells]
-    cx, cy, cz = cell_rows[:, 0], cell_rows[:, 1], cell_rows[:, 2]
-    cell_valid = cell_rows[:, 3] == 1
-    point_cell = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    point_cell[order_p] = torch.where(seg_c < max_cells, seg_c, -1).to(torch.int32)
+    cell_rows = torch.full((F * max_cells + 1, 4), _SENTINEL, dtype=torch.int32, device=dev)
+    cell_rows[torch.where(live, frame * max_cells + seg, F * max_cells)] = torch.where(ok_s[:, None], ps, _SENTINEL)
+    cell_rows = cell_rows[: F * max_cells].view(F, max_cells, 4)
+    cx, cy, cz = cell_rows[..., 0], cell_rows[..., 1], cell_rows[..., 2]
+    cell_valid = cell_rows[..., 3] == 1
+    point_cell = torch.full((F * n,), -1, dtype=torch.int32, device=dev)
+    point_cell[order_p] = torch.where(live, seg, -1).to(torch.int32)
 
     # --- block dedup over the (small) cell list ---
     B = max_cells
     bx, by, bz = cx >> 1, cy >> 1, cz >> 1
     bh1, _ = _block_hashes(bx, by, bz)
-    bkey = torch.where(cell_valid, bh1, _SENTINEL)
-    _, order_c = torch.sort(bkey, stable=True)
+    _, order_c = torch.sort(_frame_key(torch.where(cell_valid, bh1, _SENTINEL)), stable=True)
     bs = torch.stack(
         [
             torch.where(cell_valid, bx, _SENTINEL),
@@ -482,65 +564,73 @@ def build_block_table(points, valid, cell_size: float, max_cells: int) -> BlockT
             torch.where(cell_valid, bz, _SENTINEL),
             cell_valid.to(torch.int32),
         ],
-        dim=1,
-    )[order_c]
+        dim=-1,
+    ).view(F * B, 4)[order_c]
     okc = bs[:, 3] > 0
-    bfirst = _first_of_runs(bs[:, 0], bs[:, 1], bs[:, 2])
-    bseg = torch.cumsum(bfirst, 0) - 1
-    bseg_c = torch.where(okc, bseg, B)
-    cell_block = torch.zeros((max_cells,), dtype=torch.int32, device=dev)
-    cell_block[order_c] = torch.clamp(bseg_c, max=B - 1).to(torch.int32)
+    bseg, bframe = _runs_in_frames(_first_of_runs(bs[:, 0], bs[:, 1], bs[:, 2]), F)
+    cell_block = torch.zeros((F * B,), dtype=torch.int32, device=dev)
+    cell_block[order_c] = torch.clamp(torch.where(okc, bseg, B), max=B - 1).to(torch.int32)
+    cell_block = cell_block.view(F, B)
 
-    block_rows = torch.full((B + 1, 4), _SENTINEL, dtype=torch.int32, device=dev)
-    block_rows[bseg_c] = torch.where(okc[:, None], bs, _SENTINEL)
-    block_rows = block_rows[:B]
-    block_valid = block_rows[:, 3] == 1
-    uh1, uh2 = _block_hashes(block_rows[:, 0], block_rows[:, 1], block_rows[:, 2])
+    block_rows = torch.full((F * B + 1, 4), _SENTINEL, dtype=torch.int32, device=dev)
+    block_rows[torch.where(okc, bframe * B + bseg, F * B)] = torch.where(okc[:, None], bs, _SENTINEL)
+    block_rows = block_rows[: F * B].view(F, B, 4)
+    block_valid = block_rows[..., 3] == 1
+    uh1, uh2 = _block_hashes(block_rows[..., 0], block_rows[..., 1], block_rows[..., 2])
     dt = build_direct_table(
         torch.where(block_valid, uh1, _SENTINEL), uh2, block_valid,
-        torch.arange(B, dtype=torch.int32, device=dev),
+        (torch.arange(F * B, device=dev) % B).to(torch.int32).view(F, B),
     )
     slot = (cx & 1) + 2 * (cy & 1) + 4 * (cz & 1)
     cell_store = cell_block * 8 + torch.where(cell_valid, slot, 0)
-    return BlockTable(cx, cy, cz, cell_valid, point_cell, cell_store, dt)
+    return BlockTable(cx, cy, cz, cell_valid, point_cell.view(F, n), cell_store, dt)
 
 
 def block_window_probe_rows(bt: BlockTable, qcx, qcy, qcz):
-    """(rows (Q,8) block row ids, found (Q,8)) of the 8 blocks covering each
+    """(rows ([F,] Q, 8) block row ids, found) of the 8 blocks covering each
     query cell's 3x3x3 window."""
     eb = _device_table("eb", qcx.device)
-    nbx = (qcx >> 1)[:, None] + eb[0][None, :] + (qcx & 1)[:, None] - 1
-    nby = (qcy >> 1)[:, None] + eb[1][None, :] + (qcy & 1)[:, None] - 1
-    nbz = (qcz >> 1)[:, None] + eb[2][None, :] + (qcz & 1)[:, None] - 1
+    nbx = (qcx >> 1)[..., None] + eb[0] + (qcx & 1)[..., None] - 1
+    nby = (qcy >> 1)[..., None] + eb[1] + (qcy & 1)[..., None] - 1
+    nbz = (qcz >> 1)[..., None] + eb[2] + (qcz & 1)[..., None] - 1
     h1, h2 = _block_hashes(nbx, nby, nbz)
     found, rows = direct_lookup(bt.dt, h1, h2)
     return rows, found
 
 
 def block_window_probe(bt: BlockTable, qcx, qcy, qcz):
-    """As block_window_probe_rows, plus the (Q,64) window mask |d| <= 1 of
-    each candidate (e, s) at flat index e*8 + s."""
+    """As block_window_probe_rows, plus the ([F,] Q, 64) window mask |d| <= 1
+    of each candidate (e, s) at flat index e*8 + s."""
     rows, found = block_window_probe_rows(bt, qcx, qcy, qcz)
     eb = _device_table("eb", qcx.device)
+    lead = found.shape[:-1]
 
-    def dax(l, p, e):  # d[q, e, s] = l[s] + p[q] + 2 e[e] - 2
-        return (l[None, None, :] + p[:, None, None] + 2 * e[None, :, None] - 2).reshape(-1, 64)
+    def dax(l, p, e):  # d[..., e, s] = l[s] + p[...] + 2 e[e] - 2
+        return (l + p[..., None, None] + 2 * e[:, None] - 2).reshape(lead + (64,))
 
-    window = found.repeat_interleave(8, dim=1)
+    window = found[..., None].expand(lead + (8, 8)).reshape(lead + (64,))
     for a, qc in enumerate((qcx, qcy, qcz)):
         window = window & (torch.abs(dax(eb[a], qc & 1, eb[a])) <= 1)
     return rows, found, window
 
 
+def _store_targets(bt: BlockTable) -> torch.Tensor:
+    """Flat row of every cell record in a framed (F*B*8 [+1], ...) store;
+    cells that are not valid go to the drop row F*B*8."""
+    F, B = bt.cx.shape
+    return torch.where(bt.cell_valid, bt.cell_store + _frame_offsets(F, B * 8, bt.cx), F * B * 8)
+
+
 def scatter_cell_records(bt: BlockTable, values: torch.Tensor, width: int = 16) -> torch.Tensor:
-    """Per-cell records (V, k<=width) -> the (B, 8*width) block store."""
-    V, k = values.shape
-    B = bt.cx.shape[0]
+    """Per-cell records ([F,] V, k<=width) -> the ([F,] B, 8*width) block store."""
+    if bt.cx.ndim == 1:
+        return scatter_cell_records(_enframe(bt), values[None], width)[0]
+    F, V, k = values.shape
+    B = bt.cx.shape[1]
     vals = torch.nn.functional.pad(values, (0, width - k))
-    tgt = torch.where(bt.cell_valid, bt.cell_store, B * 8).long()
-    out = torch.zeros((B * 8 + 1, width), dtype=values.dtype, device=values.device)
-    out[tgt] = vals
-    return out[: B * 8].reshape(B, 8 * width)
+    out = torch.zeros((F * B * 8 + 1, width), dtype=values.dtype, device=values.device)
+    out[_store_targets(bt).view(-1)] = vals.view(F * V, width)
+    return out[: F * B * 8].view(F, B, 8 * width)
 
 
 def _window_coeff_tables():
@@ -590,27 +680,39 @@ def _device_table(name: str, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_TABLES[name], device=device)
 
 
+def _window_rows(store: torch.Tensor, rows: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
+    """The 8 block rows of every window from a framed (F*B+1, w) store whose
+    last row is all zero: rows not found read that row."""
+    F = rows.shape[0]
+    B = (store.shape[0] - 1) // F
+    return store[torch.where(found, rows.long() + _frame_offsets(F, B, rows), F * B)]
+
+
 def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_cell: bool = False):
     """27-cell window moments about each cell's own anchor (cnt, sx, sy, sz,
-    sxx, sxy, sxz, syy, syz, szz), aggregated by one (V,1024)@(1024,80)
+    sxx, sxy, sxz, syy, syz, szz), aggregated by one (F*V,1024)@(1024,80)
     matmul against the constant parity tables.
 
-    Returns (anchors (3 x (V,)), moments (10 x (V,)), probe cache (rows,
-    found, parity)[, per-cell moments (V,10)])."""
+    Returns (anchors (3 x ([F,] V)), moments (10 x ([F,] V)), probe cache
+    (rows, found, parity)[, per-cell moments ([F,] V, 10)])."""
+    if xyz.ndim == 2:
+        return _unframe(block_window_moments(xyz[None], valid[None], _enframe(bt), cell_size, return_cell))
     dtype = xyz.dtype
     dev = xyz.device
-    V = bt.cx.shape[0]
+    F, n = valid.shape
+    V = bt.cx.shape[1]
     B = V
     cs = torch.full((), cell_size, dtype=dtype, device=dev)
 
     coords = _cell_coords(xyz, cell_size)
-    qx = xyz[:, 0] - coords[:, 0].to(dtype) * cs
-    qy = xyz[:, 1] - coords[:, 1].to(dtype) * cs
-    qz = xyz[:, 2] - coords[:, 2].to(dtype) * cs
+    qx = xyz[..., 0] - coords[..., 0].to(dtype) * cs
+    qy = xyz[..., 1] - coords[..., 1].to(dtype) * cs
+    qz = xyz[..., 2] - coords[..., 2].to(dtype) * cs
     pc = bt.point_cell
     in_cell = valid & (pc >= 0)
     m = in_cell.to(dtype)
-    seg = torch.where(in_cell, bt.cell_store[torch.clamp(pc, min=0).long()], B * 8).long()
+    store_row = take(bt.cell_store, torch.clamp(pc, min=0).long(), True) + _frame_offsets(F, B * 8, pc)
+    seg = torch.where(in_cell, store_row, F * B * 8)
     z = torch.zeros_like(m)
     vals = torch.stack(
         [
@@ -620,34 +722,34 @@ def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_ce
             qy * qy * m, qy * qz * m, qz * qz * m,
             z, z, z, z, z, z,
         ],
-        dim=1,
+        dim=-1,
     )
     # index_put_ with accumulate sorts the indices and adds each cell's
     # points in input order, the same in every run; index_add_'s CUDA
-    # atomics add in a run-dependent order, and the solve carries that noise
-    store = torch.zeros((B * 8 + 1, 16), dtype=dtype, device=dev).index_put_((seg,), vals, accumulate=True)
-    store = store[: B * 8].reshape(B, 128)
+    # atomics add in a run-dependent order, and the solve carries that noise.
+    # Points in no cell land in the drop row F*B*8, cleared after.
+    store = torch.zeros((F * B * 8 + 8, 16), dtype=dtype, device=dev).index_put_(
+        (seg.view(-1),), vals.view(F * n, 16), accumulate=True)
+    store[F * B * 8:] = 0.0  # the drop row doubles as the zero row
+    flat = store.view(F * B + 1, 128)
 
     rows, found = block_window_probe_rows(bt, bt.cx, bt.cy, bt.cz)
-    r = store[torch.where(found, rows, 0).reshape(-1).long()]
-    r = r * found.reshape(-1, 1).to(dtype)
-    rec_flat = r.reshape(V, 1024)
-
+    rec_flat = _window_rows(flat, rows, found).view(F * V, 1024)
     W = (
         _device_table("w0", dev).to(dtype)
         + cs * _device_table("w1", dev).to(dtype)
         + (cs * cs) * _device_table("w2", dev).to(dtype)
     )  # (8, 1024, 10)
-    big = rec_flat @ W.permute(1, 0, 2).reshape(1024, 80)  # (V, 80)
+    big = rec_flat @ W.permute(1, 0, 2).reshape(1024, 80)  # (F*V, 80)
     parity = (bt.cx & 1) + 2 * (bt.cy & 1) + 4 * (bt.cz & 1)
-    out = big.view(V, 8, 10)[torch.arange(V, device=dev), parity.long()]
+    out = torch.take_along_dim(big.view(F, V, 8, 10), parity.long()[..., None, None], dim=-2)[..., 0, :]
 
     anchors = (bt.cx.to(dtype) * cs, bt.cy.to(dtype) * cs, bt.cz.to(dtype) * cs)
-    moments = tuple(out[:, i] for i in range(10))
+    moments = tuple(out[..., i] for i in range(10))
     cache = (rows, found, parity)
     if return_cell:
-        cell_rec = store.reshape(B * 8, 16)[torch.clamp(bt.cell_store, max=B * 8 - 1).long()][:, :10]
-        cell_rec = cell_rec * bt.cell_valid[:, None].to(dtype)
+        cell_rec = store[torch.clamp(bt.cell_store, max=B * 8 - 1).long() + _frame_offsets(F, B * 8, pc)][..., :10]
+        cell_rec = cell_rec * bt.cell_valid[..., None].to(dtype)
         return anchors, moments, cache, cell_rec
     return anchors, moments, cache
 
@@ -655,19 +757,15 @@ def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_ce
 def block_window_scalar_max(bt: BlockTable, cell_values, rows, found, parity):
     """Per-cell max of a scalar over its 27-cell window, reusing a
     block_window_moments probe cache."""
-    B = bt.cx.shape[0]
+    if bt.cx.ndim == 1:
+        return block_window_scalar_max(_enframe(bt), cell_values[None], rows[None], found[None], parity[None])[0]
+    F, B = bt.cx.shape
     dtype = cell_values.dtype
-    dev = cell_values.device
     NEG = torch.finfo(dtype).min
-    flat_tgt = torch.where(
-        bt.cell_valid, (bt.cell_store >> 3) * 8 + (bt.cell_store & 7), B * 8
-    ).long()
-    store = torch.full((B * 8 + 1,), NEG, dtype=dtype, device=dev)
-    store[flat_tgt] = torch.where(bt.cell_valid, cell_values, NEG)
-    store = store[: B * 8].reshape(B, 8)
-    V = rows.shape[0]
-    r = store[torch.where(found, rows, 0).reshape(-1).long()]
-    r = torch.where(found.reshape(-1, 1), r, NEG).reshape(V, 64)
-    wmax = _device_table("wmax", dev)  # (8, 64)
+    store = torch.full((F * B * 8 + 8,), NEG, dtype=dtype, device=cell_values.device)
+    store[_store_targets(bt)] = torch.where(bt.cell_valid, cell_values, NEG)
+    store[F * B * 8:] = NEG  # the drop row reads as empty
+    r = _window_rows(store.view(F * B + 1, 8), rows, found).view(F, B, 64)
+    wmax = _device_table("wmax", cell_values.device)  # (8, 64)
     cand = torch.where(wmax[parity.long()], r, NEG)
     return torch.max(cand, dim=-1).values
