@@ -3,6 +3,7 @@
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs corr_knn pca_exact reference gicp
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs --x64 gicp
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs --seeds 0 gicp
+    JAX_PLATFORMS=cpu python -m tests.jax_mode_refs town
 
 Runs each named mode through tloam_tpu.pipeline.frontend.odometry_step_packed
 on the CPU in pure float32 (x64 off), on the same scans that chip_smoke.py
@@ -12,6 +13,12 @@ per-family correspondence minima and, with mapping_flag, the global-map
 count after every frame. chip_smoke.py keeps these numbers as constants
 (JAX_REF). A realization is the seed offset of the scans' noise (scan i
 draws from default_rng(i + offset)); --seeds replaces the mode's own list.
+
+"town" is the first TOWN_FRAMES frames of the route-c hard-town drive of
+scripts/long_drive.py (world 3, cars 11, occlusions 12, packed transfer)
+through tloam_tpu.utils.drives.hard_town_drive, which chip_smoke.py's
+town phase holds the port to (JAX_TOWN_REF). Its raycasts go to the scan
+cache (TLOAM_SCAN_CACHE), which the port's drives harness shares.
 
 With --x64 the same program runs with jax_enable_x64 on: the data stay
 float32, but Python constants and some intermediates become float64. It is
@@ -55,6 +62,10 @@ def drive_scans(drive: str, synthetic, seed: int = 0):
     scans = [synthetic.simulate_scan(gt[i], scene, rings=64, az_steps=1870,
                                      rng=np.random.default_rng(i + seed), noise=0.01) for i in range(len(gt))]
     return gt, scans
+
+
+TOWN_FRAMES = 30
+TOWN_DRIVE = {"route": "c", "world_seed": 3, "cars_seed": 11, "occ_seed": 12}
 
 
 def gt_rel(gt: np.ndarray) -> np.ndarray:
@@ -102,6 +113,25 @@ def run(mode: str, seed: int) -> dict:
     return out
 
 
+def run_town() -> dict:
+    import jax
+
+    from tloam_tpu.config import load_pipeline_config
+    from tloam_tpu.utils import drives, trajectory
+
+    t = time.perf_counter()
+    est, rel, info = drives.hard_town_drive(load_pipeline_config(None, ()), frames=TOWN_FRAMES, collect_diags=True,
+                                            **TOWN_DRIVE)
+    drift = np.linalg.norm(est[:, :3, 3] - rel[:, :3, 3], axis=1)
+    return {"mode": "town", "frames": TOWN_FRAMES, **TOWN_DRIVE, "jax": jax.__version__,
+            "x64": bool(jax.config.jax_enable_x64), "seconds": time.perf_counter() - t,
+            "ate_m": float(trajectory.ate_rmse(rel, est)),
+            "final_drift_m": float(drift[-1]), "max_drift_m": float(drift.max()),
+            "degenerate_frames": info["degenerate_frames"],
+            "corr_min": np.stack([d.num_corr for d in info["diags"][1:]]).min(axis=0).tolist(),
+            "drift_m": drift.tolist()}
+
+
 def main(argv) -> int:
     import jax
 
@@ -115,6 +145,9 @@ def main(argv) -> int:
         seeds = [int(v) for v in argv[i + 1].split(",")]
         argv = argv[:i] + argv[i + 2:]
     for mode in argv or list(MODES):
+        if mode == "town":
+            print(json.dumps(run_town()), flush=True)
+            continue
         for seed in seeds or MODES[mode][2]:
             print(json.dumps(run(mode, seed)), flush=True)
     return 0

@@ -28,20 +28,13 @@ from tloam_tpu.ops import se3 as jse3
 
 from tests.test_parallel import make_pair
 from tests.test_registration import CFG
+from tests.test_torch_common import two_threads  # noqa: F401
 
 TCFG = TLSConfig(**dataclasses.asdict(CFG))
 INT_DIAGS = ("iterations", "num_corr", "corr_trace", "coarse_trace", "aligned_trace", "degenerate")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The batched CPU solves run on 2 intra-op threads: the suite runs
-    several test processes at once, and more threads than cores slow every
-    one of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+pytestmark = pytest.mark.usefixtures("two_threads")  # the batched CPU solves on 2 intra-op threads
 
 
 def torch_features(fs) -> treg.FeatureSet:

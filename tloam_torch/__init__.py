@@ -2,7 +2,11 @@
 
 The same truncated-least-squares LiDAR odometry front end, module for module
 (``ops.se3``, ``cloud``, ``ops.eig3``, ``ops.voxel``, ``ops.residuals``,
-``models.*``, ``pipeline.frontend``), on PyTorch tensors. The one TPU kernel
+``models.*``, ``pipeline.frontend``, ``parallel.*``), on PyTorch tensors,
+with what a user runs around it: the ``tloam-torch`` command line
+(``cli``, ``bench``), checkpoints (``utils.checkpoint``), KITTI and
+point-cloud files (``io.*``), the Open3D-style cloud ops (``ops.cloud_ops``,
+``ops.factories``) and the synthetic drives (``utils.drives``). The one TPU kernel
 of the main path (the edge greedy-pick rounds, ``tloam_tpu/models/edge.py``)
 is a hand-written CUDA kernel here (``csrc/edge_pick.cu``), built with nvcc
 at first use.

@@ -8,6 +8,7 @@ the iterative weighted-axis plane fits of all 12 regions at once. The JAX
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -224,3 +225,10 @@ def ground_remove(cloud: Cloud, sensor: SensorConfig, g: GroundSegConfig) -> Gro
     ground = Cloud(xyz=xyz, intensity=torch.zeros_like(inten), valid=ground_mask)
     objects = Cloud(xyz=xyz, intensity=ring.to(inten.dtype), valid=vertical_mask | high)
     return GroundSegResult(ground, objects, ring, planes)
+
+
+def attach_ring_intensity(cloud: Cloud, ring: torch.Tensor) -> Cloud:
+    """Pack ring + fractional time into intensity like the reference
+    (estimateRingsAndTimes2 stores the beam id in the intensity channel)."""
+    frac = cloud.intensity - torch.floor(cloud.intensity)
+    return dataclasses.replace(cloud, intensity=ring.to(cloud.intensity.dtype) + frac)

@@ -9,9 +9,26 @@ point-to-plane it is r^2 (registration.cpp:101).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from tloam_torch.ops import se3
+
+
+class ResidualBatch(NamedTuple):
+    """Flattened per-correspondence residual data ready for normal equations.
+
+    res  : (N, 3) residual components (1-res families put it in [..., 0])
+    jac  : (N, 3, 6) Jacobian rows (zero-padded for 1-res families)
+    cost : (N,) the GNC bookkeeping cost (see module docstring)
+    valid: (N,) bool, whether this correspondence contributes
+    """
+
+    res: torch.Tensor
+    jac: torch.Tensor
+    cost: torch.Tensor
+    valid: torch.Tensor
 
 
 def _dt(pw: torch.Tensor, weight: torch.Tensor, sign: float) -> torch.Tensor:

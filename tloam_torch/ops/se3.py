@@ -168,6 +168,11 @@ def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def identity(dtype=torch.float32, batch: tuple = (), device=None) -> torch.Tensor:
+    """(batch..., 4, 4) identity transforms (a broadcast view: clone to write)."""
+    return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch) + (4, 4))
+
+
 def inv(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform (...,4,4)."""
     R = T[..., :3, :3]

@@ -425,6 +425,42 @@ def gather_planes(points: torch.Tensor, idx: torch.Tensor):
     return tuple(take(points[..., a], idx, frames) for a in range(3))
 
 
+# ---------------------------------------------------------------------------
+# Packed record gathers (tloam_tpu/ops/voxel.py:574-613). On a TPU a gather
+# pays per row, so the JAX module packs each record's K values into `width`
+# contiguous lanes, 128 // width records to a row. The port keeps the layout
+# and computes the same arrays; its own solver gathers (n, k) tensors.
+# ---------------------------------------------------------------------------
+
+
+def pack_records(cols: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack a (K <= width, V) SoA block into (ceil(V / (128 / width)), 128)
+    rows of `width`-lane records. `width` must divide 128."""
+    K, V = cols.shape
+    per = 128 // width
+    Vp = -(-V // per) * per
+    a = torch.nn.functional.pad(cols, (0, Vp - V, 0, width - K))
+    return a.T.reshape(Vp // per, 128)
+
+
+def unpack_records(packed: torch.Tensor, k: int, width: int) -> torch.Tensor:
+    """Inverse of pack_records: (rows, 128) -> (k, rows * 128 / width)
+    (the first k lanes of each record; trailing pad records included)."""
+    per = 128 // width
+    return packed.reshape(packed.shape[0] * per, width).T[:k]
+
+
+def gather_records(packed: torch.Tensor, idx: torch.Tensor, width: int, k: int) -> torch.Tensor:
+    """Records packed by pack_records: idx (n,) -> (n, k), the first k lanes
+    of each record. Out-of-range idx must be clamped by the caller."""
+    per = 128 // width
+    grp = packed[idx // per].reshape(-1, per, width)
+    sel = (idx % per)[:, None, None] == torch.arange(per, device=idx.device)[None, :, None]
+    # the JAX module's masked sum (a -0.0 record lane reads as +0.0)
+    rec = torch.sum(torch.where(sel, grp, torch.zeros((), dtype=grp.dtype, device=grp.device)), dim=1)
+    return rec.to(packed.dtype)[:, :k]
+
+
 def neighbour_covariance(points: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
     """Covariance (a00, a01, a02, a11, a12, a22) of each point's valid
     neighbours idx ([F,] Q, k), from moments about the point itself:
@@ -621,6 +657,16 @@ def _store_targets(bt: BlockTable) -> torch.Tensor:
     return torch.where(bt.cell_valid, bt.cell_store + _frame_offsets(F, B * 8, bt.cx), F * B * 8)
 
 
+def block_window_records(store: torch.Tensor, rows: torch.Tensor, found: torch.Tensor) -> torch.Tensor:
+    """The 8 block rows of each query from a (B, 128) store: (Q, 8) ->
+    (Q, 64, 16) candidate records (slot-major within a block; zeros where
+    the block is absent)."""
+    q = rows.shape[0]
+    r = store[torch.where(found, rows, 0).reshape(-1).long()]
+    r = r.reshape(q, 8, 8, 16) * found[:, :, None, None].to(store.dtype)
+    return r.reshape(q, 64, 16)
+
+
 def scatter_cell_records(bt: BlockTable, values: torch.Tensor, width: int = 16) -> torch.Tensor:
     """Per-cell records ([F,] V, k<=width) -> the ([F,] B, 8*width) block store."""
     if bt.cx.ndim == 1:
@@ -769,3 +815,111 @@ def block_window_scalar_max(bt: BlockTable, cell_values, rows, found, parity):
     wmax = _device_table("wmax", cell_values.device)  # (8, 64)
     cand = torch.where(wmax[parity.long()], r, NEG)
     return torch.max(cand, dim=-1).values
+
+
+# ---------------------------------------------------------------------------
+# Cell tables: unique-voxel indexing for cell-aggregation algorithms
+# (tloam_tpu/ops/voxel.py:1005-1162; no mode of the frame runs them)
+# ---------------------------------------------------------------------------
+
+
+class CellTable(NamedTuple):
+    """cx/cy/cz (V,) int32 cell coords of each unique cell (sentinel where
+    unused), cell_valid (V,), point_cell (N,) int32 row of each point's cell
+    (-1 invalid), dt the direct table (h1, h2) -> row."""
+
+    cx: torch.Tensor
+    cy: torch.Tensor
+    cz: torch.Tensor
+    cell_valid: torch.Tensor
+    point_cell: torch.Tensor
+    dt: DirectTable
+
+
+def build_cell_table(points, valid, cell_size: float, max_cells: int) -> CellTable:
+    """Deduplicate occupied cells (in cell-hash order) and hash them."""
+    n = points.shape[0]
+    dev = points.device
+    coords = _cell_coords(points, cell_size)
+    coords = torch.where(valid[:, None], coords, _SENTINEL)
+    pkeys = torch.where(valid, _hash_coords(coords), _SENTINEL)
+    _, order_p = torch.sort(pkeys, stable=True)
+    cs = coords[order_p]
+    ok_s = valid[order_p]
+    seg = torch.cumsum(_first_of_runs(cs[:, 0], cs[:, 1], cs[:, 2]), 0) - 1
+    seg_c = torch.where(ok_s & (seg < max_cells), seg, max_cells)
+    # same-cell writers carry identical rows, so duplicate writes are benign
+    rows = torch.full((max_cells + 1, 3), _SENTINEL, dtype=torch.int32, device=dev)
+    rows[seg_c] = torch.where(ok_s[:, None], cs, _SENTINEL)
+    cx, cy, cz = rows[:max_cells].unbind(1)
+    cell_valid = torch.zeros(max_cells + 1, dtype=torch.bool, device=dev)
+    cell_valid[seg_c] = ok_s
+    cell_valid = cell_valid[:max_cells]
+    point_cell = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    point_cell[order_p] = torch.where(seg_c < max_cells, seg_c, -1).to(torch.int32)
+    keys = torch.where(cell_valid, _lin3(cx, cy, cz, _P1, _P2, _P3), _SENTINEL)
+    dt = build_direct_table(keys, _hash2_parts(cx, cy, cz), cell_valid,
+                            torch.arange(max_cells, dtype=torch.int32, device=dev))
+    return CellTable(cx, cy, cz, cell_valid, point_cell, dt)
+
+
+def cell_neighbor_index(table: CellTable) -> torch.Tensor:
+    """(V, 27) row of each cell's 26 neighbours and itself (the JAX module's
+    _OFF order), -1 where the neighbour cell is unoccupied."""
+    offs = _device_table("offs", table.cx.device)
+    nx = table.cx[:, None] + offs[:, 0]
+    ny = table.cy[:, None] + offs[:, 1]
+    nz = table.cz[:, None] + offs[:, 2]
+    found, row = direct_lookup(table.dt, _lin3(nx, ny, nz, _P1, _P2, _P3), _hash2_parts(nx, ny, nz))
+    return torch.where(found & table.cell_valid[:, None], row, -1)
+
+
+def anchored_window_moments(xyz, valid, table: CellTable, nbr: torch.Tensor, cell_size: float):
+    """27-cell window second-order moments about each cell's OWN anchor
+    (cell coord x cell_size), re-anchoring each neighbour's sums with the
+    exact parallel-axis shift: raw-coordinate moments cancel in float32
+    beyond about 30 m from the origin.
+
+    Returns (anchors (3 x (V,)), moments (cnt, sx, sy, sz, sxx, sxy, sxz,
+    syy, syz, szz), each (V,), about each cell's anchor)."""
+    dtype = xyz.dtype
+    dev = xyz.device
+    V = table.cx.shape[0]
+    cs = torch.full((), cell_size, dtype=dtype, device=dev)
+    pc = table.point_cell
+    in_cell = valid & (pc >= 0)
+    pcs = torch.clamp(pc, min=0).long()
+    qx = xyz[:, 0] - table.cx[pcs].to(dtype) * cs
+    qy = xyz[:, 1] - table.cy[pcs].to(dtype) * cs
+    qz = xyz[:, 2] - table.cz[pcs].to(dtype) * cs
+    m = in_cell.to(dtype)
+    vals = torch.stack([m, qx * m, qy * m, qz * m, qx * qx * m, qx * qy * m, qx * qz * m,
+                        qy * qy * m, qy * qz * m, qz * qz * m], dim=1)
+    # accumulating index_put_: each cell's points in input order, the same
+    # sum in every run (index_add_'s CUDA atomics add in a run-dependent order)
+    seg = torch.where(in_cell, pc, V).long()
+    mom = torch.zeros((V + 1, 10), dtype=dtype, device=dev).index_put_((seg,), vals, accumulate=True)[:V]
+
+    has = (nbr >= 0).to(dtype)  # (V, 27)
+    g = mom[torch.clamp(nbr, min=0).long()].unbind(-1)  # 10 x (V, 27)
+    offs = _device_table("offs", dev).to(dtype) * cs
+    Dx, Dy, Dz = offs[:, 0], offs[:, 1], offs[:, 2]
+    n_j, sx_j, sy_j, sz_j = g[0], g[1], g[2], g[3]
+
+    def tot(a):
+        return torch.sum(a * has, dim=1)
+
+    moments = (
+        tot(n_j),
+        tot(sx_j + n_j * Dx),
+        tot(sy_j + n_j * Dy),
+        tot(sz_j + n_j * Dz),
+        tot(g[4] + 2.0 * Dx * sx_j + n_j * Dx * Dx),
+        tot(g[5] + Dx * sy_j + Dy * sx_j + n_j * Dx * Dy),
+        tot(g[6] + Dx * sz_j + Dz * sx_j + n_j * Dx * Dz),
+        tot(g[7] + 2.0 * Dy * sy_j + n_j * Dy * Dy),
+        tot(g[8] + Dy * sz_j + Dz * sy_j + n_j * Dy * Dz),
+        tot(g[9] + 2.0 * Dz * sz_j + n_j * Dz * Dz),
+    )
+    anchors = (table.cx.to(dtype) * cs, table.cy.to(dtype) * cs, table.cz.to(dtype) * cs)
+    return anchors, moments

@@ -16,14 +16,13 @@ outer loop syncs once per GNC round (models/registration.py) and each 6x6
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tloam_torch import device as _device
-from tloam_torch.cloud import Cloud
+from tloam_torch.cloud import Cloud, map_tensors
 from tloam_torch.config import PipelineConfig  # noqa: F401  (re-exported)
 from tloam_torch.models import dcvc, edge as edge_mod, features, segmentation
 from tloam_torch.models.registration import Diagnostics, FeatureSet, scan_matching
@@ -273,7 +272,8 @@ def init_state(cfg: PipelineConfig, device=None, dtype=torch.float32) -> Odometr
 
 
 def _where_cloud(c: torch.Tensor, new: Cloud, old: Cloud) -> Cloud:
-    return Cloud(*(torch.where(c, n, o) for n, o in zip(dataclasses.astuple(new), dataclasses.astuple(old))))
+    return Cloud(*(None if n is None and o is None else torch.where(c, n, o)
+                   for n, o in zip(new.channels(), old.channels())))
 
 
 def _where_submap(c: torch.Tensor, new: SubmapState, old: SubmapState) -> SubmapState:
@@ -412,8 +412,10 @@ def _tensor(v, dtype, dev) -> torch.Tensor:
 
 
 def _cloud_from(tree, dev, dtype) -> Cloud:
+    opt = lambda v: None if v is None else _tensor(v, dtype, dev)  # noqa: E731
     return Cloud(
-        _tensor(tree.xyz, dtype, dev), _tensor(tree.intensity, dtype, dev), _tensor(tree.valid, torch.bool, dev)
+        _tensor(tree.xyz, dtype, dev), _tensor(tree.intensity, dtype, dev), _tensor(tree.valid, torch.bool, dev),
+        opt(getattr(tree, "normals", None)), opt(getattr(tree, "colors", None)),
     )
 
 
@@ -449,17 +451,7 @@ def state_from_numpy(tree, device=None, dtype=torch.float32) -> OdometryState:
 def state_to_numpy(state: OdometryState) -> OdometryState:
     """The same state with every tensor copied to a numpy array (frame_idx
     stays an int)."""
-
-    def conv(v):
-        if isinstance(v, Cloud):
-            return Cloud(*(t.cpu().numpy() for t in dataclasses.astuple(v)))
-        if isinstance(v, torch.Tensor):
-            return v.cpu().numpy()
-        if isinstance(v, SubmapState):
-            return SubmapState(*(conv(x) for x in v))
-        return v
-
-    return OdometryState(*(conv(v) for v in state))
+    return map_tensors(state, lambda t: t.cpu().numpy())
 
 
 __all__ = [
