@@ -30,8 +30,9 @@ no result):
                    scans, tests/test_long_horizon.py) at its budgets: ATE
                    < 1.0 m, final drift < 2.5 m, max drift < 2.6 m
   6. modes         one line per off-default mode of MODES (kNN and GICP
-                   registration, exact PCA, the reference quirks with the
-                   global map), each a full-size drive like phase 4's (GICP:
+                   registration, exact PCA, factor_num 3 without the sphere
+                   family, the reference quirks with the global map), each
+                   a full-size drive like phase 4's (GICP:
                    three noise realizations of a rest start) with its host
                    syncs, profiled frame, hot-operation times, and the JAX
                    package's own numbers on the same drives and the limits
@@ -69,6 +70,13 @@ no result):
                    through tloam_torch.utils.drives.hard_town_drive, the
                    raycasts spread over processes first, held to limits
                    derived from the JAX package's CPU run (JAX_TOWN_REF)
+ 12. harness       the measurement scripts (scripts/torch_*.py) through their
+                   entry points at reduced sizes: the solver bench on 4
+                   frames, the batched bench at B = 128 in default and
+                   factor3 (poses held to one-frame solves), the mode
+                   matrix's factor3 on phase 4's drive (held to JAX_REF) and
+                   one 10-frame sweep run (route a, world 3; no degenerate
+                   frame)
   8. kernels       one line per kernel: launches in all drives, kernel and
                    plain-version times, bound, agreement (printed last)
 
@@ -110,6 +118,7 @@ MODES = {
     "corr_knn": ("bench", ["odometry.tls.corr_mode=knn"], (0,)),
     "pca_exact": ("bench", ["feature.pca_mode=exact"], (0,)),
     "gicp": ("rest_start", ["odometry.tls.plane_residual=gicp"], (1000, 2000, 3000)),
+    "factor3": ("bench", ["odometry.tls.factor_num=3"], (0,)),
     "reference": ("bench", [
         "odometry.tls.mu_init=reference_zero", "sphere_submap_from_planar=true",
         "sphere_index_bug=true", "odometry.mapping_flag=true", "frame_planar_fill=1024",
@@ -117,7 +126,7 @@ MODES = {
 }
 # The JAX package on the same drives and realizations, pure float32 on the
 # CPU (jax 0.9.0):
-#   JAX_PLATFORMS=cpu python -m tests.jax_mode_refs corr_knn pca_exact reference gicp
+#   JAX_PLATFORMS=cpu python -m tests.jax_mode_refs corr_knn pca_exact reference gicp factor3
 JAX_REF = {
     "corr_knn": {0: {"ate_m": 0.01384732570128028, "max_drift_m": 0.05133948625126377,
                      "corr_min": [750, 240, 268, 53]}},
@@ -131,6 +140,8 @@ JAX_REF = {
         3000: {"ate_m": 0.041636664175335125, "final_drift_m": 0.1400471029037131,
                "max_drift_m": 0.15023238533065275, "corr_min": [810, 2000, 242, 19]},
     },
+    "factor3": {0: {"ate_m": 0.017214623401848397, "max_drift_m": 0.07197373785575886,
+                    "corr_min": [742, 1843, 75, 0]}},
     "reference": {0: {"ate_m": 0.019216195422061804, "max_drift_m": 0.0785994986458988,
                       "corr_min": [768, 1844, 77, 0], "global_map_final": 8391}},
 }
@@ -168,6 +179,24 @@ PEAK_F32_FLOPS = 67e12
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def device_fields(dev) -> dict:
+    """What a measurement ran on: the device type, the card's name and
+    nvidia-smi line (None on the CPU) and the torch version."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    return {"backend": dev.type, "device": torch.cuda.get_device_name(0) if cuda else "cpu",
+            "nvidia_smi": nvidia_smi() if cuda else None, "torch": torch.__version__}
 
 
 def load_by_path(path: Path):
@@ -349,14 +378,20 @@ def canary(dev) -> bool:
     return ok, launches
 
 
+def sensor_rel(gt: np.ndarray) -> np.ndarray:
+    """Sensor poses of a ground-truth base trajectory relative to its first
+    frame."""
+    gt_sensor = gt.copy()
+    gt_sensor[:, 2, 3] += 1.73
+    return np.linalg.inv(gt_sensor[0])[None] @ gt_sensor
+
+
 def drive_errors(est: np.ndarray, gt: np.ndarray):
     """(ATE, per-frame drift) of sensor poses against a ground-truth base
     trajectory, both relative to the first frame."""
     from tloam_torch.utils import trajectory
 
-    gt_sensor = gt.copy()
-    gt_sensor[:, 2, 3] += 1.73
-    gt_rel = np.linalg.inv(gt_sensor[0])[None] @ gt_sensor
+    gt_rel = sensor_rel(gt)
     return trajectory.ate_rmse(gt_rel, est), np.linalg.norm(est[:, :3, 3] - gt_rel[:, :3, 3], axis=1)
 
 
@@ -490,12 +525,14 @@ def mode_ops(mode: str, cfg, drive: dict, q, n) -> dict:
 def run_mode(mode: str, bench_gt, bench_scans):
     """Phase 6 for one mode: its drive on each noise realization, each held
     to its limits; one JSON line. Timing, host syncs and the profiled frame
-    are the first realization's. Returns (ok, edge kernel launches)."""
+    are the first realization's. Returns (ok, edge kernel launches, the
+    first realization's poses)."""
     from tloam_torch.config import load_pipeline_config
 
     drive, overrides, seeds = MODES[mode]
     cfg_m = load_pipeline_config(None, overrides)
-    fam = 3 if mode == "reference" else 4  # the sphere family may starve under the reference quirks
+    # the sphere family may starve under the reference quirks; factor_num=3 drops it
+    fam = 3 if mode in ("reference", "factor3") else 4
     t = time.perf_counter()
     runs, first, launches, corr_min, ok_m = [], None, 0, None, True
     for seed in seeds:
@@ -530,7 +567,7 @@ def run_mode(mode: str, bench_gt, bench_scans):
           "stage_ms_mean": first["stages"], "host_syncs_frame": first["host_syncs_frame"],
           "profiled_frame": first["profiled_frame"], "realizations": runs,
           "ops_ms": mode_ops(mode, cfg_m, d, *scans_m[-1]), "ok": ok_m})
-    return ok_m, launches
+    return ok_m, launches, first["est"]
 
 
 # phase 7: the batched, frame-sharded and consensus solves of tloam_torch.parallel
@@ -1127,6 +1164,86 @@ def run_town() -> tuple[bool, int]:
     return ok, launches
 
 
+# phase 12: the measurement entry points (scripts/torch_*.py) at reduced sizes
+HARNESS_BATCH = 128
+HARNESS_SWEEP_FRAMES = 10
+
+
+def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
+    """Phase 12: each script's entry point on the card, small: the solver
+    bench on 4 frames; the batched bench at B = HARNESS_BATCH in default
+    and factor3 (the first 64 entries and the modes' 64 held to one-frame
+    solves); the mode matrix's run_mode for factor3 on phase 4's bench
+    drive, held to headroom_limits over JAX_REF and set beside phase 6's
+    factor3 drive of the same scans; one sweep run of
+    HARNESS_SWEEP_FRAMES frames (route a, world 3), raycast into a fresh
+    cache. One JSON line. Returns (ok, edge kernel launches)."""
+    import os
+    import shutil
+
+    from tloam_torch.models import edge
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_harness"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ["TLOAM_SCAN_CACHE"] = str(work / "scan_cache")
+    script = lambda name: load_by_path(root / "scripts" / f"{name}.py")  # noqa: E731
+    workers = str(os.cpu_count() or 1)
+    seconds = {}
+    edge.LAUNCHES = 0
+
+    t = time.perf_counter()
+    solver = script("torch_solver_bench").main(["--frames", "4", "--reps", "2", "--out", str(work / "gniters.json")])
+    seconds["solver_bench"] = time.perf_counter() - t
+    ok_solver = bool(np.isfinite([solver["value"], solver["solves_per_s"], solver["mean_outer_iters"]]).all()
+                     and solver["n_solves_timed"] == 8)
+
+    t = time.perf_counter()
+    bat = script("torch_batched_bench").main(["--batch", str(HARNESS_BATCH), "--n", "2", "--modes", "default,factor3",
+                                              "--workers", workers, "--out", str(work / "batched.json")])
+    seconds["batched_bench"] = time.perf_counter() - t
+    ok_batched = bool(bat["ok"] and set(bat["modes"]) == {"default", "factor3"})
+
+    t = time.perf_counter()
+    modes = script("torch_modes_bench")
+    f3 = modes.run_mode(modes.MODES["factor3"], bench_scans, sensor_rel(bench_gt), 2)
+    seconds["modes_bench_factor3"] = time.perf_counter() - t
+    limits = headroom_limits(JAX_REF["factor3"][0])
+    # final_pose_t is rounded to 0.1 mm, as the JAX script rounds it
+    phase6_t = factor3_est[-1, :3, 3].astype(np.float64).round(4)
+    f3_est_gap_m = float(np.abs(np.asarray(f3["final_pose_t"]) - phase6_t).max())
+    ok_modes = bool(np.isfinite(f3["ate_rmse_m"]) and f3["ate_rmse_m"] < limits["ate_m"]
+                    and f3["max_drift_m"] < limits["max_drift_m"] and f3["corr_last"][3] == 0)
+
+    t = time.perf_counter()
+    sw = script("torch_sweep").main(["--frames", str(HARNESS_SWEEP_FRAMES), "--seeds", "1", "--routes", "a",
+                                     "--workers", workers, "--out", str(work / "sweep.json")])
+    seconds["sweep"] = time.perf_counter() - t
+    run = sw["runs"][0]
+    ok_sweep = bool(sw["n_runs"] == 1 and run["finite"] and run["degenerate_frames"] == 0
+                    and np.isfinite([run["ate_rmse_m"], run["max_drift_m"]]).all())
+
+    launches = edge.LAUNCHES
+    # one a frame: the solver bench's 5 frames and 4 captures, the batched
+    # bench's 4 frames and 1 capture, the bench drive, the sweep run
+    expected = (1 + 2 * 4) + (4 + 1) + len(bench_scans) + HARNESS_SWEEP_FRAMES
+    ok = ok_solver and ok_batched and ok_modes and ok_sweep and launches == expected
+    emit({"phase": "harness", "seconds": seconds,
+          "solver_bench": {k: solver[k] for k in ("value", "solves_per_s", "mean_outer_iters", "inner_iterations",
+                                                   "first_call_s", "host_syncs_per_solve", "n_solves_timed")},
+          "batched_bench": {"batches": bat["batches"], "modes": bat["modes"],
+                            "single_frames_per_s": bat["single_frames_per_s"]},
+          "modes_bench_factor3": {**f3, "limits": limits, "jax_ref": JAX_REF["factor3"][0],
+                                  "final_pose_gap_to_phase_6_m": f3_est_gap_m},
+          "sweep_run": {k: run[k] for k in ("route", "world_seed", "ate_rmse_m", "final_drift_m", "max_drift_m",
+                                            "degenerate_frames", "raycast_s", "drive_frames_per_s")},
+          "edge_pick_launches": launches, "expected_launches": expected,
+          "checks": {"solver": ok_solver, "batched": ok_batched, "modes": ok_modes, "sweep": ok_sweep},
+          "ok": ok})
+    return ok, launches
+
+
 def main() -> int:
     import argparse
 
@@ -1144,10 +1261,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "name": kind, "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
@@ -1254,8 +1368,9 @@ def main() -> int:
     launches += canary_launches
 
     # ---- 6. modes ----
+    mode_est = {}
     for mode in MODES:
-        ok_m, mode_launches = run_mode(mode, gt, scans)
+        ok_m, mode_launches, mode_est[mode] = run_mode(mode, gt, scans)
         launches += mode_launches
         if not ok_m:
             return 1
@@ -1280,6 +1395,12 @@ def main() -> int:
     ok_t, town_launches = run_town()
     launches += town_launches
     if not ok_t:
+        return 1
+
+    # ---- 12. harness ----
+    ok_h, harness_launches = run_harness(gt, scans, mode_est["factor3"])
+    launches += harness_launches
+    if not ok_h:
         return 1
 
     # ---- 8. kernels ----

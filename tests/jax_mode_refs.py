@@ -4,6 +4,7 @@
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs --x64 gicp
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs --seeds 0 gicp
     JAX_PLATFORMS=cpu python -m tests.jax_mode_refs town
+    JAX_PLATFORMS=cpu python -m tests.jax_mode_refs factor3
 
 Runs each named mode through tloam_tpu.pipeline.frontend.odometry_step_packed
 on the CPU in pure float32 (x64 off), on the same scans that chip_smoke.py
@@ -40,6 +41,7 @@ MODES = {
     "corr_knn": ("bench", ["odometry.tls.corr_mode=knn"], (0,)),
     "pca_exact": ("bench", ["feature.pca_mode=exact"], (0,)),
     "gicp": ("rest_start", ["odometry.tls.plane_residual=gicp"], (1000, 2000, 3000)),
+    "factor3": ("bench", ["odometry.tls.factor_num=3"], (0,)),
     "reference": ("bench", [
         "odometry.tls.mu_init=reference_zero", "sphere_submap_from_planar=true",
         "sphere_index_bug=true", "odometry.mapping_flag=true", "frame_planar_fill=1024",

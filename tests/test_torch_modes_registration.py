@@ -258,6 +258,31 @@ def test_scan_matching_modes_match(world, corr_mode, plane_residual, mu_init, be
     assert np.abs(err).max() < 0.01, err
 
 
+@pytest.mark.parametrize("factor_num", [3, 2])
+def test_scan_matching_factor_num_matches(world, factor_num):
+    """factor_num 3 drops the sphere family and 2 the edge family too
+    (registration.cpp:517-559; the mode matrix's factor3): from a
+    prediction 0.15 m and 0.01 rad short of the truth, the dropped families
+    have no correspondence in either package, the traces are equal and the
+    poses agree to 1e-4, as in test_scan_matching_modes_match."""
+    scan, submap, truth = world
+    xi = jse3.log(jnp.asarray(truth)) - jnp.asarray(f32([0.15, 0, 0, 0, 0, 0.01]))
+    predict = f32(jse3.exp(xi))
+    tls = dataclasses.replace(TLS, factor_num=factor_num)
+    pose_j, diag_j = jax.jit(lambda s, m, p: jreg.scan_matching(s, m, p, tls))(scan, submap, jnp.asarray(predict))
+    pose_t, diag_t = treg.scan_matching(_to_torch_fs(scan), _to_torch_fs(submap), tt(predict), tls)
+    dropped = slice(3, 4) if factor_num == 3 else slice(2, 4)  # num_corr: planar, ground, edge, sphere
+    assert not np.asarray(diag_j.num_corr)[dropped].any() and not np_of(diag_t.num_corr)[dropped].any()
+    assert np.asarray(diag_j.num_corr)[:2].min() > 500
+    assert int(diag_t.iterations) == int(diag_j.iterations)
+    for name in ("corr_trace", "coarse_trace", "aligned_trace"):
+        assert np.array_equal(np_of(getattr(diag_t, name)), np.asarray(getattr(diag_j, name))), name
+    dxi = np.asarray(jse3.log(jnp.asarray(np.linalg.inv(np.asarray(pose_j)) @ np_of(pose_t))))
+    assert np.abs(dxi).max() < 1e-4, dxi
+    err = np.asarray(jse3.log(jnp.asarray(np.linalg.inv(truth) @ np.asarray(pose_j))))
+    assert np.abs(err).max() < 0.01, err
+
+
 def test_fitness_score_matches(pair):
     scan, submap, predict = pair
     sw = scan.transform(jnp.asarray(predict))
