@@ -1,0 +1,71 @@
+"""The two sides a cell runs: the port under test and the plain reference.
+
+Both are bound to the same few names, so the drivers run either one: a
+run drives the port, the check drives the reference over the same scans,
+and the control drives the reference in the program's place at a lower
+precision. The port is ``tloam_torch``; nothing here imports the JAX
+package.
+"""
+from __future__ import annotations
+
+import contextlib
+import inspect
+from typing import Any, NamedTuple
+
+import torch
+
+
+class Program(NamedTuple):
+    name: str
+    frontend: Any  # init_state, odometry_step_packed, preprocess_frame, submap_features, odometry_step
+    Cloud: Any  # pack_scan, from_packed
+    stack_tensors: Any
+    solve: Any  # (scans, submaps, predict_poses, tls) with a leading batch -> (poses, Diagnostics)
+    load_config: Any  # (path, overrides) -> PipelineConfig
+    stages: Any = None  # the program's stage timer (enable/collect), where it has one
+    edge_picks: int | None = None  # picks a sector of the edge kernel's call
+
+
+def port(device) -> Program:
+    """tloam_torch, its CUDA kernels built (into build/tloam_torch/ inside
+    the checkout) when the run is on the card."""
+    from tloam_torch import build
+    from tloam_torch.cloud import Cloud, stack_tensors
+    from tloam_torch.config import load_pipeline_config
+    from tloam_torch.models import edge
+    from tloam_torch.parallel.batched import vmap_scan_matching
+    from tloam_torch.pipeline import frontend
+    from tloam_torch.utils.timing import STAGES
+
+    if torch.device(device).type == "cuda":
+        build.build(build.KERNELS)
+    picks = inspect.signature(edge.extract_edges).parameters["picks_per_sector"].default
+    return Program("tloam_torch", frontend, Cloud, stack_tensors, vmap_scan_matching, load_pipeline_config,
+                   STAGES, picks)
+
+
+def reference() -> Program:
+    from lidar_bench.reference import frontend
+    from lidar_bench.reference.cloud import Cloud, stack_tensors
+    from lidar_bench.reference.config import load_pipeline_config
+    from lidar_bench.reference.registration import scan_matching
+
+    return Program("reference", frontend, Cloud, stack_tensors, scan_matching, load_pipeline_config)
+
+
+def pipeline_config(prog: Program, config: dict):
+    """The configuration file's PipelineConfig overrides applied to the
+    program's defaults."""
+    return prog.load_config(None, [f"{k}={v}" for k, v in config["overrides"].items()])
+
+
+@contextlib.contextmanager
+def precision(tf32: bool):
+    """float32 matrix products and convolutions in full float32 (the
+    configurations' precision), or in TF32 (the control's)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
