@@ -223,6 +223,14 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def edge_launches() -> int:
+    """Launches of the edge kernel so far in this process (the tracer's
+    counter edge_pick.launch)."""
+    from tloam_torch.utils.timing import STAGES
+
+    return STAGES.counts["edge_pick.launch"]
+
+
 def count_syncs(fn):
     """Run fn with CUDA sync warnings on: (result, {python file:line: syncs})."""
     import collections
@@ -266,7 +274,8 @@ def profiled_kernel_ms(fn, reps: int, name: str):
 
 def profile_frame(fn):
     """Trace fn once: (result, device busy ms, wall ms, top device kernels
-    by total ms). Busy is the sum of device kernel and copy times."""
+    by total ms). Busy is the sum of device kernel and copy times; the
+    device track's copies of the tracer's spans are no work."""
     import collections
 
     import torch
@@ -281,7 +290,7 @@ def profile_frame(fn):
         wall_ms = 1e3 * (time.perf_counter() - t)
     by_name = collections.Counter()
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
             by_name[ev.name[:60]] += ev.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     top = {k: round(v, 3) for k, v in by_name.most_common(8)}
@@ -343,7 +352,6 @@ def canary(dev) -> bool:
     held to the same budgets."""
     from tloam_torch.cloud import Cloud
     from tloam_torch.config import OdometryConfig, PipelineConfig, TLSConfig
-    from tloam_torch.models import edge
     from tloam_torch.pipeline import frontend
     from tloam_torch.utils import synthetic
 
@@ -359,7 +367,7 @@ def canary(dev) -> bool:
     gt = synthetic.varied_trajectory(n, step=0.8)
     state = frontend.init_state(cfg, dev)
     poses = []
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
     t = time.perf_counter()
     for i in range(n):
         xyz, inten = synthetic.simulate_scan(gt[i], scene, rings=32, az_steps=1024,
@@ -368,7 +376,7 @@ def canary(dev) -> bool:
         state, pose, _ = frontend.odometry_step(state, raw, cfg)
         poses.append(pose.cpu().numpy())
     seconds = time.perf_counter() - t
-    launches = edge.LAUNCHES
+    launches = edge_launches() - launches0
     est = np.stack(poses)
     ate, drift = drive_errors(est, gt)
     ok = bool(np.isfinite(est).all() and drift[-1] < 2.5 and drift.max() < 2.6 and ate < 1.0 and launches == n)
@@ -424,14 +432,13 @@ def run_drive(cfg, scans) -> dict:
     records its host-clock time and CUDA-event stage times."""
     import torch
 
-    from tloam_torch.models import edge
     from tloam_torch.pipeline import frontend
     from tloam_torch.utils.timing import STAGES
 
     state = frontend.init_state(cfg)
     out = {"poses": [], "corr": [], "rounds": [], "clusters": [], "frame_s": [], "stage_ms": [], "global_map": []}
     STAGES.enable()
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
     for i, (q, n) in enumerate(scans):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -450,7 +457,7 @@ def run_drive(cfg, scans) -> dict:
         out["rounds"].append(int(diag.iterations))
         out["clusters"].append(int(diag.num_clusters))
         out["global_map"].append(int(state.global_map.count()))
-    out["launches"] = edge.LAUNCHES
+    out["launches"] = edge_launches() - launches0
     STAGES.enable(False)
     out["state"] = state
     out["est"] = np.stack(out["poses"])
@@ -731,14 +738,14 @@ def run_parallel(cfg, scans) -> tuple[bool, int]:
     import torch
 
     from tloam_torch.cloud import Cloud, map_tensors, stack_tensors
-    from tloam_torch.models import edge, registration
+    from tloam_torch.models import registration
     from tloam_torch.parallel import batched
     from tloam_torch.utils.op_count import count_ops
 
     tls = cfg.odometry.tls
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
     entries = capture_entries(cfg, scans)
-    launches = edge.LAUNCHES
+    launches = edge_launches() - launches0
     dev = entries[0][2].device
     gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
     noisy = []
@@ -899,13 +906,12 @@ def run_cli(workdir: Path) -> tuple[bool, int]:
 
     from tloam_torch.cloud import Cloud
     from tloam_torch.io import kitti, pointcloud_io
-    from tloam_torch.models import edge
     from tloam_torch.utils import synthetic
 
     workdir.mkdir(parents=True, exist_ok=True)
     w = lambda name: str(workdir / name)  # noqa: E731
     t = time.perf_counter()
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
     # (a) synthetic: uninterrupted with a checkpoint every 6 frames, then a
     # run stopped at frame 6 and one resumed from its checkpoint
     every = ["--checkpoint-every", str(CLI_STOP)]
@@ -946,7 +952,7 @@ def run_cli(workdir: Path) -> tuple[bool, int]:
     rc_k, m_k = cli_call(["run", "--data", str(root), "--output", w("k.txt")])
     kitti_s = time.perf_counter() - t
     rc_i, info = cli_call(["info"])
-    launches = edge.LAUNCHES
+    launches = edge_launches() - launches0
     ok = bool(
         rc_a == rc_b == rc_c == rc_k == rc_i == 0 and resume["trajectory_equal"] and resume["final_checkpoint_equal"]
         and boxes == list(range(CLI_FRAMES)) and readers_equal
@@ -1135,7 +1141,6 @@ def run_town() -> tuple[bool, int]:
     import shutil
 
     from tloam_torch.config import PipelineConfig
-    from tloam_torch.models import edge
     from tloam_torch.utils import drives
 
     cache = Path(__file__).resolve().parent / "build" / "chip_smoke_town"
@@ -1143,9 +1148,9 @@ def run_town() -> tuple[bool, int]:
     os.environ["TLOAM_SCAN_CACHE"] = str(cache)
     workers = os.cpu_count() or 1
     raycast_s = drives.fill_scan_cache(TOWN_FRAMES, workers, **TOWN_DRIVE)
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
     est, rel, info = drives.hard_town_drive(PipelineConfig(), frames=TOWN_FRAMES, collect_diags=True, **TOWN_DRIVE)
-    launches = edge.LAUNCHES
+    launches = edge_launches() - launches0
     drift = np.linalg.norm(est[:, :3, 3] - rel[:, :3, 3], axis=1)
     from tloam_torch.utils import trajectory
 
@@ -1181,7 +1186,6 @@ def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
     import os
     import shutil
 
-    from tloam_torch.models import edge
 
     root = Path(__file__).resolve().parent
     work = root / "build" / "chip_smoke_harness"
@@ -1191,7 +1195,7 @@ def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
     script = lambda name: load_by_path(root / "scripts" / f"{name}.py")  # noqa: E731
     workers = str(os.cpu_count() or 1)
     seconds = {}
-    edge.LAUNCHES = 0
+    launches0 = edge_launches()
 
     t = time.perf_counter()
     solver = script("torch_solver_bench").main(["--frames", "4", "--reps", "2", "--out", str(work / "gniters.json")])
@@ -1224,7 +1228,7 @@ def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
     ok_sweep = bool(sw["n_runs"] == 1 and run["finite"] and run["degenerate_frames"] == 0
                     and np.isfinite([run["ate_rmse_m"], run["max_drift_m"]]).all())
 
-    launches = edge.LAUNCHES
+    launches = edge_launches() - launches0
     # one a frame: the solver bench's 5 frames and 4 captures, the batched
     # bench's 4 frames and 1 capture, the bench drive, the sweep run
     expected = (1 + 2 * 4) + (4 + 1) + len(bench_scans) + HARNESS_SWEEP_FRAMES

@@ -214,18 +214,35 @@ def test_cli_eval_and_info_match_jax(tmp_path, capsys):
 
 
 def test_host_timer_report_and_profile_trace(tmp_path):
-    t = timing.HostTimer()
-    for _ in range(2):
-        with t.stage("a") as h:
-            h.sync = torch.ones(3).sum()
-    with t.stage("b"):
-        pass
-    assert t.counts == {"a": 2, "b": 1} and t.totals["a"] >= 0.0
-    lines = t.report().splitlines()
-    assert len(lines) == 2 and lines[0].split()[0] in ("a", "b") and "x2" in t.report()
-    with timing.profile_trace(str(tmp_path / "tr")):
-        torch.ones(100).cumsum(0)
-    assert json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    """The tracer's report (host ms a span, largest first, then the
+    counters) and its spans in a torch.profiler Chrome trace taken while
+    it is on."""
+    from torch.profiler import ProfilerActivity, profile
+
+    timing.STAGES.enable()
+    try:
+        for _ in range(2):
+            with timing.STAGES.stage("a"):
+                torch.ones(3).sum()
+        with timing.STAGES.stage("b"):
+            pass
+        timing.STAGES.count("c", 2)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with timing.STAGES.stage("traced"):
+                torch.ones(100).cumsum(0)
+        totals = timing.STAGES.collect()
+    finally:
+        timing.STAGES.enable(False)
+    assert set(totals) == {"host:a", "host:b", "host:traced", "count:c"} and totals["count:c"] == 2
+    lines = timing.report(totals).splitlines()
+    assert len(lines) == 5 and lines[0].split() == ["span", "host", "ms", "device", "ms"]
+    assert {ln.split()[0] for ln in lines[1:4]} == {"a", "b", "traced"} and lines[1].split()[2] == "-"
+    assert lines[4].split() == ["c", "2", "(count)"]
+    host = [float(ln.split()[1]) for ln in lines[1:4]]
+    assert host == sorted(host, reverse=True)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert [e for e in events if e.get("name") == "traced"]
 
 
 def test_drives_scans_cache_and_drive(tmp_path, monkeypatch):

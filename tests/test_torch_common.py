@@ -183,6 +183,8 @@ NOT_PORTED = {
                                       "tloam_torch/csrc/edge_pick.cu",
     ("pipeline/frontend.py", "odometry_step_nodonate"): "XLA buffer donation is JAX-only; the port's "
                                                         "odometry_step never consumes its state",
+    ("utils/timing.py", "profile_trace"): "the tracer's spans reach any torch.profiler session taken while "
+                                          "STAGES is on, which exports its own Chrome trace",
 }
 
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from tloam_torch.models import edge
+from tloam_torch.utils.timing import STAGES
 
 KW = dict(num_sectors=6, picks_per_sector=20, curv_thres=0.1, suppress_gap_sq=0.05, ring_min_num=131)
 R, W = 64, 2304
@@ -77,9 +78,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 def test_plain_version_runs_on_cpu():
-    before = edge.LAUNCHES
+    before = STAGES.counts["edge_pick.launch"]
     e, p, c = edge.pick_rounds(*rings("cpu"), **KW)
-    assert edge.LAUNCHES == before  # the CPU path launches no kernel
+    assert STAGES.counts["edge_pick.launch"] == before  # the CPU path launches no kernel
     assert e.dtype == p.dtype == torch.bool and c.shape == (R, W)
     assert int(e.sum()) > 100 and bool((p | ~e).all())  # every edge is picked
 
@@ -95,10 +96,10 @@ def test_kernel_matches_plain_on_gpu(num_sectors, picks, width):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     kw = dict(KW, num_sectors=num_sectors, picks_per_sector=picks)
     planes = rings("cuda", width=width, num_sectors=num_sectors)
-    before = edge.LAUNCHES
+    before = STAGES.counts["edge_pick.launch"]
     got = edge.pick_rounds(*planes, **kw)
     torch.cuda.synchronize()
-    assert edge.LAUNCHES == before + 1
+    assert STAGES.counts["edge_pick.launch"] == before + 1
     want = edge._pick_rounds_plain(*planes, **kw)
     assert got[0].dtype == got[1].dtype == torch.bool
     assert all(torch.equal(a, b) for a, b in zip(got, want))

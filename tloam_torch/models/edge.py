@@ -24,10 +24,7 @@ import torch
 
 from tloam_torch import build
 from tloam_torch.cloud import Cloud
-
-# launches of the CUDA kernel (a plain counter: chip_smoke.py reads it to
-# show that the main path went through the kernel)
-LAUNCHES = 0
+from tloam_torch.utils.timing import STAGES
 
 
 def _roll_cols(a: torch.Tensor, k: int) -> torch.Tensor:
@@ -119,8 +116,8 @@ def _pick_rounds_cuda(
     curv_thres: float, suppress_gap_sq: float, ring_min_num: int,
 ):
     """Launch csrc/edge_pick.cu: one CTA per ring. Same outputs as
-    `_pick_rounds_plain`; the kernel writes the masks as torch.bool."""
-    global LAUNCHES
+    `_pick_rounds_plain`; the kernel writes the masks as torch.bool.
+    Each launch adds one to the counter ``edge_pick.launch``."""
     R, W = shape = dx.shape
     for name, t in (("dx", dx), ("dy", dy), ("dz", dz), ("dval", dval)):
         if not (t.is_cuda and t.dtype is torch.float32 and t.shape == shape and t.is_contiguous()):
@@ -147,7 +144,7 @@ def _pick_rounds_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"edge_pick: kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
+    STAGES.count("edge_pick.launch")
     return edge, picked, dcurv
 
 

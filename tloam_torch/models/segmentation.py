@@ -16,6 +16,7 @@ import torch
 
 from tloam_torch.cloud import Cloud
 from tloam_torch.config import GroundSegConfig, SensorConfig
+from tloam_torch.utils.timing import STAGES
 
 
 def quadrant_of(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -144,7 +145,9 @@ def ground_remove(cloud: Cloud, sensor: SensorConfig, g: GroundSegConfig) -> Gro
     high = valid & (xyz[:, 2] > mean_h)
     candidate = valid & ~high
 
-    bounds = torch.as_tensor(section_bounds(sensor, g), dtype=dtype, device=dev)
+    # a copy from a host list: on the card the host waits for it
+    with STAGES.sync("sync.ground.bounds"):
+        bounds = torch.as_tensor(section_bounds(sensor, g), dtype=dtype, device=dev)
     region = region_ids(xyz, bounds, g.num_sec)
     region_l = region.long()
 

@@ -10,9 +10,12 @@ step accepts.
 
 Device and host: every tensor of a frame stays on the state's device. The
 first-frame branch is plain Python on the host-int ``frame_idx``; the
-health gate's submap select is a ``torch.where`` (no sync). The solver's
-outer loop syncs once per GNC round (models/registration.py) and each 6x6
-``torch.linalg.eigh`` may sync; everything else is asynchronous.
+health gate's submap select is a ``torch.where`` (no sync). The host waits
+on the device at three sites, each a ``STAGES.sync`` span and counter: the
+ground segmentation's section bounds (a copy from a host list, once a
+frame), the solver's flag read (once a GNC round) and each 6x6
+``torch.linalg.eigh`` (models/registration.py); everything else is
+asynchronous.
 """
 from __future__ import annotations
 
@@ -382,8 +385,11 @@ def odometry_step(state: OdometryState, raw: Cloud, cfg: PipelineConfig):
 def odometry_step_packed(state: OdometryState, q_scan, n_valid: int, cfg: PipelineConfig):
     """One step from a Cloud.pack_scan transfer: ONE (cap,4) int16 array
     (8 bytes a point) moved to the state's device and dequantized there."""
-    q = torch.as_tensor(q_scan).to(state.pose.device, non_blocking=True)
-    return odometry_step(state, Cloud.from_packed(q, int(n_valid)), cfg)
+    with STAGES.stage("frame"):
+        with STAGES.stage("intake"):
+            q = torch.as_tensor(q_scan).to(state.pose.device, non_blocking=True)
+            raw = Cloud.from_packed(q, int(n_valid))
+        return odometry_step(state, raw, cfg)
 
 
 def run_sequence(scans, cfg: PipelineConfig, device=None, dtype=torch.float32, raw_cap: int | None = None):
