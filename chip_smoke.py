@@ -17,6 +17,17 @@ no result):
                    a full-size synthetic frame; dynamic shared memory per
                    width; times both (CUDA events over 200 wrapper calls,
                    and torch.profiler with device kernels per call)
+  3b. window_moments  csrc/window_moments.cu against its plain version
+                   (the accumulating index_put_) on the card, bit for bit
+                   and launch against launch, at the batched solve's three
+                   cell-table shapes (64 frames of 8192, 12288 and 8192
+                   slots: edge, planar, ground) and the front end's (one
+                   frame of 131072): the drive's scans, voxel-thinned into
+                   two thirds of a submap's slots, or whole for the front
+                   end's call; ms a call of the
+                   wrapper (zero fill and launch), of the kernel alone and
+                   of the plain version, the index_put_ kernel's own time,
+                   and the bound by bytes
   4. drive         the full-size 23-frame synthetic drive (64 rings x 1870
                    azimuth steps, capacity 131072, default PipelineConfig)
                    through tloam_torch.pipeline.frontend.odometry_step_packed,
@@ -231,6 +242,14 @@ def edge_launches() -> int:
     return STAGES.counts["edge_pick.launch"]
 
 
+def window_launches() -> int:
+    """Launches of the window-moment kernel so far in this process (the
+    tracer's counter window_moments.launch)."""
+    from tloam_torch.utils.timing import STAGES
+
+    return STAGES.counts["window_moments.launch"]
+
+
 def count_syncs(fn):
     """Run fn with CUDA sync warnings on: (result, {python file:line: syncs})."""
     import collections
@@ -345,6 +364,66 @@ def edge_bound_ms(R: int, W: int, picks: int) -> float:
     )
 
 
+# (frames, slots, max_cells, cell size) of the window-moment calls: the
+# batched solve's edge, planar and ground tables at B = 64
+# (registration._solve, TLSConfig's thresholds) and the front end's cell
+# PCA of one scan (FeatureConfig radius, max_cells)
+WINDOW_SHAPES = ((64, 8192, 4096, 1.0), (64, 12288, 6144, 0.5), (64, 8192, 8192, 0.5), (1, 131072, 65536, 0.2))
+
+
+def window_moments_check(scans, dev) -> tuple[bool, list]:
+    """Phase 3b: the window-moment kernel against its plain version at the
+    main path's shapes. Frame f holds scan f % len(scans): as it is where
+    the frame has the scan's capacity (the front end's call), else
+    voxel-thinned at 0.4 m into two thirds of its slots, the rest padding
+    (a submap's cloud)."""
+    import torch
+
+    from tloam_torch.cloud import Cloud
+    from tloam_torch.ops import voxel
+
+    clouds = [Cloud.from_packed(torch.as_tensor(q).to(dev), m) for q, m in scans]
+    out = []
+    for F, n, V, cs in WINDOW_SHAPES:
+        xyz = torch.zeros((F, n, 3), device=dev)
+        valid = torch.zeros((F, n), dtype=torch.bool, device=dev)
+        for f in range(F):
+            c = clouds[f % len(clouds)]
+            if n == c.capacity:
+                xyz[f], valid[f] = c.xyz, c.valid
+            else:
+                x, _, ok = voxel.voxel_downsample(c.xyz, c.intensity, c.valid, 0.4, 2 * n // 3)
+                xyz[f, : 2 * n // 3], valid[f, : 2 * n // 3] = x, ok
+        bt = voxel.build_block_table(xyz, valid, cs, V)
+        got = voxel._window_store_cuda(xyz, valid, bt, cs)
+        again = voxel._window_store_cuda(xyz, valid, bt, cs)
+        want = voxel._window_store_plain(xyz, valid, bt, cs)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        repeat = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        counted = int((valid & (bt.point_cell >= 0)).sum())
+        written = int((got[:, 0] > 0).sum())
+        rows, run_len = torch.unique_consecutive(bt.point_cell.gather(1, bt.point_order.long()), return_counts=True)
+        # each slot's order and row index, each counted point's xyz and flag,
+        # each written record with its cell row (coords, flag, store row)
+        nbytes = F * n * 8 + counted * 13 + written * (64 + 17)
+        ms = cuda_ms(lambda: voxel._window_store_cuda(xyz, valid, bt, cs), 50)
+        kernel_ms, kernels_per_call = profiled_kernel_ms(
+            lambda: voxel._window_store_cuda(xyz, valid, bt, cs), 20, "window_moments_kernel")
+        plain_ms = cuda_ms(lambda: voxel._window_store_plain(xyz, valid, bt, cs), 5)
+        library_ms, _ = profiled_kernel_ms(lambda: voxel._window_store_plain(xyz, valid, bt, cs), 3,
+                                           "indexing_backward_kernel")
+        out.append({"frames": F, "slots": n, "max_cells": V, "cell_size": cs, "bit_identical": same,
+                    "repeats": repeat, "counted_points": counted, "records": written,
+                    "longest_run": int(run_len[rows >= 0].max()), "ms": ms, "kernel_ms": kernel_ms,
+                    "device_kernels_per_call": kernels_per_call, "plain_ms": plain_ms,
+                    "index_put_kernel_ms": library_ms, "bytes": nbytes,
+                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
+    ok = all(r["bit_identical"] and r["repeats"] and r["records"] > 0 for r in out)
+    emit({"phase": "window_moments", "kernel": "window_moments", "shapes": out, "ok": ok})
+    return ok, out
+
+
 def canary(dev) -> bool:
     """The JAX package's 60-frame canary (tests/test_long_horizon.py:41-76):
     a varied drive (turns, stop-and-go, reverse) of 32 x 1024 scans under
@@ -426,8 +505,9 @@ def drive_scans(drive: str, n: int, seed: int = 0):
 
 
 def run_drive(cfg, scans) -> dict:
-    """Drive the packed scans through frontend.odometry_step_packed, the edge
-    kernel's count set to 0 just before and read just after. Frame
+    """Drive the packed scans through frontend.odometry_step_packed, the
+    kernels' counts set to 0 just before and read just after (the
+    window-moment kernel's also a frame). Frame
     SYNC_FRAME counts its host syncs, PROFILE_FRAME is traced; every frame
     records its host-clock time and CUDA-event stage times."""
     import torch
@@ -438,7 +518,7 @@ def run_drive(cfg, scans) -> dict:
     state = frontend.init_state(cfg)
     out = {"poses": [], "corr": [], "rounds": [], "clusters": [], "frame_s": [], "stage_ms": [], "global_map": []}
     STAGES.enable()
-    launches0 = edge_launches()
+    launches0, window0 = edge_launches(), window_launches()
     for i, (q, n) in enumerate(scans):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -458,6 +538,8 @@ def run_drive(cfg, scans) -> dict:
         out["clusters"].append(int(diag.num_clusters))
         out["global_map"].append(int(state.global_map.count()))
     out["launches"] = edge_launches() - launches0
+    out["window_launches"] = window_launches() - window0
+    out["window_launches_frame"] = [int(s.get("count:window_moments.launch", 0)) for s in out["stage_ms"]]
     STAGES.enable(False)
     out["state"] = state
     out["est"] = np.stack(out["poses"])
@@ -1344,14 +1426,25 @@ def main() -> int:
     if not ok_k:
         return 1
 
+    # ---- 3b. window_moments ----
+    ok_w, window = window_moments_check(scans, dev)
+    if not ok_w:
+        return 1
+    ground = window[2]
+
     # ---- 4. drive ----
     d = run_drive(cfg, scans)
     launches = d["launches"]
+    per_frame = d["window_launches_frame"]
     est = d["est"]
     ate, drift_f = drive_errors(est, gt)
     drift = float(drift_f.max())
+    # the window-moment kernel: the front end's cell PCA every frame, and
+    # from the second frame on each cell table of the solve (edge, planar,
+    # ground, and the coarse planar grid where a frame asks for it)
+    ok_w = per_frame[0] >= 1 and min(per_frame[1:]) >= 4 and sum(per_frame) == d["window_launches"]
     ok_d = (
-        launches == N_FRAMES and np.isfinite(est).all() and est.shape == (N_FRAMES, 4, 4)
+        ok_w and launches == N_FRAMES and np.isfinite(est).all() and est.shape == (N_FRAMES, 4, 4)
         and ate < ATE_LIMIT_M and drift < DRIFT_LIMIT_M and min(d["corr_min"]) > 0
     )
     emit({"phase": "drive", "frames": N_FRAMES, "frames_per_s": d["frames_per_s"],
@@ -1359,7 +1452,8 @@ def main() -> int:
           "stage_ms_mean": d["stages"], "ate_m": ate, "max_drift_m": drift,
           "corr_min_planar_ground_edge_sphere": d["corr_min"],
           "clusters_min_max": [min(d["clusters"]), max(d["clusters"])],
-          "edge_pick_launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "edge_pick_launches": launches, "window_moments_launches": d["window_launches"],
+          "window_moments_launches_frame": per_frame, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "host_syncs_frame": d["host_syncs_frame"], "profiled_frame": d["profiled_frame"],
           "ok": bool(ok_d)})
     if not ok_d:
@@ -1413,6 +1507,12 @@ def main() -> int:
         "replaces": "tloam_tpu/models/edge.py:166", "launches": launches,
         "max_abs_err": max(err_r, err_f, err_s), "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "match": same_r and same_f and same_s,
+    }, {
+        "name": "window_moments", "route": "cuda", "source": "tloam_torch/csrc/window_moments.cu",
+        "replaces": None, "shape": [ground["frames"], ground["slots"]],
+        "launches": d["window_launches"], "ms": ground["ms"],
+        "kernel_ms": ground["kernel_ms"], "plain_ms": ground["plain_ms"], "bound_ms": ground["bound_ms"],
+        "bound_by": "bytes", "library_ms": ground["index_put_kernel_ms"], "match": ok_w,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

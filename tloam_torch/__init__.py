@@ -8,8 +8,9 @@ with what a user runs around it: the ``tloam-torch`` command line
 point-cloud files (``io.*``), the Open3D-style cloud ops (``ops.cloud_ops``,
 ``ops.factories``) and the synthetic drives (``utils.drives``). The one TPU kernel
 of the main path (the edge greedy-pick rounds, ``tloam_tpu/models/edge.py``)
-is a hand-written CUDA kernel here (``csrc/edge_pick.cu``), built with nvcc
-at first use.
+is a hand-written CUDA kernel here (``csrc/edge_pick.cu``); so is the cell
+tables' window-moment accumulation, a scatter-add in the JAX package
+(``csrc/window_moments.cu``). Both are built with nvcc at first use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit CPU request they raise (``tloam_torch.device``).

@@ -26,7 +26,7 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared"]
-KERNELS = ("edge_pick",)
+KERNELS = ("edge_pick", "window_moments")
 HOST_LIBRARIES = ("kitti_loader",)
 
 _lock = threading.Lock()

@@ -14,10 +14,13 @@ Exactness notes:
   * every sort is stable (`jnp.argsort` and `lax.sort(is_stable=True)` are);
   * `voxel_downsample` keeps the JAX module's cell-anchored integer fixed
     point, so its sums are exact on every device;
-  * `block_window_moments` sums float moments with an accumulating
-    `index_put_`, which adds each cell's points in input order on every
-    device, so a run repeats bit for bit; its outputs agree with the JAX
-    module to float32 rounding (1e-5 relative), not bit for bit;
+  * `block_window_moments` sums each cell's float moments serially in
+    input order: on a CUDA tensor in the hand-written kernel
+    ``csrc/window_moments.cu``, on a CPU tensor in its plain version, an
+    accumulating `index_put_` with the same order and arithmetic (the
+    card tests hold the two equal bit for bit). A run on the card repeats
+    bit for bit; the outputs agree with the JAX module to float32 rounding
+    (1e-5 relative), not bit for bit;
   * the tables and lookups the solver calls take an optional leading frame
     axis (see "Frame axis" below): frame f of a batch holds exactly the
     one-frame call's cells, buckets, drops and payloads on frame f; the
@@ -26,13 +29,17 @@ Exactness notes:
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tloam_torch import build
 from tloam_torch.cloud import map_tensors
+from tloam_torch.utils.timing import STAGES
 
 # Spatial-hash constants (linear forms, see tloam_tpu/ops/voxel.py:39-47)
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -539,7 +546,9 @@ class BlockTable(NamedTuple):
     """cx/cy/cz ([F,] V) int32 cell coords (sentinel where unused),
     cell_valid ([F,] V), point_cell ([F,] N) cell row per point (-1
     invalid), cell_store ([F,] V) block_row * 8 + Morton slot, dt block hash
-    -> block row."""
+    -> block row, point_order ([F,] N) int32 the frame's point indices
+    sorted stably by cell key: cell row v is the v-th run of equal cells
+    in that order, its points in input order."""
 
     cx: torch.Tensor
     cy: torch.Tensor
@@ -548,6 +557,7 @@ class BlockTable(NamedTuple):
     point_cell: torch.Tensor
     cell_store: torch.Tensor
     dt: DirectTable
+    point_order: torch.Tensor
 
 
 def _block_hashes(bx, by, bz):
@@ -619,7 +629,8 @@ def build_block_table(points, valid, cell_size: float, max_cells: int) -> BlockT
     )
     slot = (cx & 1) + 2 * (cy & 1) + 4 * (cz & 1)
     cell_store = cell_block * 8 + torch.where(cell_valid, slot, 0)
-    return BlockTable(cx, cy, cz, cell_valid, point_cell.view(F, n), cell_store, dt)
+    point_order = (order_p % n).to(torch.int32).view(F, n)
+    return BlockTable(cx, cy, cz, cell_valid, point_cell.view(F, n), cell_store, dt, point_order)
 
 
 def block_window_probe_rows(bt: BlockTable, qcx, qcy, qcz):
@@ -734,22 +745,16 @@ def _window_rows(store: torch.Tensor, rows: torch.Tensor, found: torch.Tensor) -
     return store[torch.where(found, rows.long() + _frame_offsets(F, B, rows), F * B)]
 
 
-def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_cell: bool = False):
-    """27-cell window moments about each cell's own anchor (cnt, sx, sy, sz,
-    sxx, sxy, sxz, syy, syz, szz), aggregated by one (F*V,1024)@(1024,80)
-    matmul against the constant parity tables.
-
-    Returns (anchors (3 x ([F,] V)), moments (10 x ([F,] V)), probe cache
-    (rows, found, parity)[, per-cell moments ([F,] V, 10)])."""
-    if xyz.ndim == 2:
-        return _unframe(block_window_moments(xyz[None], valid[None], _enframe(bt), cell_size, return_cell))
+def _window_store_plain(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Tensor:
+    """The per-cell moment records of a framed table, (F*V*8 + 8, 16): row
+    cell_store + f*V*8 holds lanes 0-9 (cnt, q, q q^T) summed over the
+    cell's points, q = point - cell anchor; every other row and lanes 10-15
+    are 0. The plain version of csrc/window_moments.cu."""
     dtype = xyz.dtype
     dev = xyz.device
     F, n = valid.shape
-    V = bt.cx.shape[1]
-    B = V
+    B = bt.cx.shape[1]
     cs = torch.full((), cell_size, dtype=dtype, device=dev)
-
     coords = _cell_coords(xyz, cell_size)
     qx = xyz[..., 0] - coords[..., 0].to(dtype) * cs
     qy = xyz[..., 1] - coords[..., 1].to(dtype) * cs
@@ -777,6 +782,92 @@ def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_ce
     store = torch.zeros((F * B * 8 + 8, 16), dtype=dtype, device=dev).index_put_(
         (seg.view(-1),), vals.view(F * n, 16), accumulate=True)
     store[F * B * 8:] = 0.0  # the drop row doubles as the zero row
+    return store
+
+
+_window_fn = None  # the library's launch function, bound at first use
+
+
+def _window_kernel():
+    global _window_fn
+    if _window_fn is None:
+        fn = build.load("window_moments").tloam_window_moments
+        fn.restype = ctypes.c_int
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [ptr] * 7 + [i64] * 2 + [ptr] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ptr]
+        _window_fn = fn
+    return _window_fn
+
+
+def _window_store_cuda(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Tensor:
+    """Launch csrc/window_moments.cu: one thread per slot of each frame's
+    point_order, the first slot of each cell's run sums it. Same store as
+    `_window_store_plain`, bit for bit. xyz, valid and the table's tensors
+    must be contiguous (cx, cy, cz may share one stride). Each launch adds
+    one to the counter ``window_moments.launch``."""
+    F, n = valid.shape
+    V = bt.cx.shape[-1]
+    if not (xyz.dtype is torch.float32 and xyz.shape == (F, n, 3) and xyz.is_contiguous()):
+        raise ValueError(f"window_moments: xyz must be a contiguous float32 tensor of shape {(F, n, 3)}")
+    if not (valid.dtype is torch.bool and valid.is_contiguous()):
+        raise ValueError("window_moments: valid must be a contiguous bool tensor")
+    for name, dtype, shape in (("point_cell", torch.int32, (F, n)), ("point_order", torch.int32, (F, n)),
+                               ("cell_valid", torch.bool, (F, V)), ("cell_store", torch.int32, (F, V))):
+        t = getattr(bt, name)
+        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()):
+            raise ValueError(f"window_moments: the table's {name} must be a contiguous {dtype} tensor of shape {shape}")
+    coords = (bt.cx, bt.cy, bt.cz)
+    if not all(c.dtype is torch.int32 and c.shape == (F, V) and c.stride() == bt.cx.stride() for c in coords):
+        raise ValueError(f"window_moments: the table's cx, cy, cz must be int32 of shape {(F, V)}, with one stride")
+    dev = xyz.device
+    if not (dev.type == "cuda" and all(t.device == dev for t in (valid, bt.point_cell, bt.point_order,
+                                                                   bt.cell_valid, bt.cell_store, *coords))):
+        raise ValueError("window_moments: every input must be a CUDA tensor on one device")
+    fn = _window_kernel()
+    store = torch.zeros((F * V * 8 + 8, 16), dtype=torch.float32, device=dev)
+    # the launch goes to the current device: switch only when xyz lies elsewhere
+    on_dev = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+    with on_dev:
+        rc = fn(
+            xyz.data_ptr(), valid.data_ptr(), bt.point_cell.data_ptr(), bt.point_order.data_ptr(),
+            bt.cx.data_ptr(), bt.cy.data_ptr(), bt.cz.data_ptr(), *bt.cx.stride(),
+            bt.cell_valid.data_ptr(), bt.cell_store.data_ptr(), store.data_ptr(), F, n, V, cell_size,
+            torch._C._cuda_getCurrentRawStream(dev.index),
+        )
+    if rc != 0:
+        raise RuntimeError(f"window_moments: kernel launch failed with CUDA error {rc}")
+    STAGES.count("window_moments.launch")
+    return store
+
+
+def _window_store(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Tensor:
+    """Dispatch by device: the CUDA kernel on a CUDA tensor (points and
+    flags made contiguous: the unpacked frame path hands over columns of an
+    (n, 4) array), the plain version on a CPU tensor."""
+    if xyz.device.type == "cuda":
+        return _window_store_cuda(xyz.contiguous(), valid.contiguous(), bt, cell_size)
+    if xyz.device.type == "cpu":
+        return _window_store_plain(xyz, valid, bt, cell_size)
+    raise ValueError(f"window_moments: unsupported device {xyz.device}")
+
+
+def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_cell: bool = False):
+    """27-cell window moments about each cell's own anchor (cnt, sx, sy, sz,
+    sxx, sxy, sxz, syy, syz, szz), aggregated by one (F*V,1024)@(1024,80)
+    matmul against the constant parity tables.
+
+    Returns (anchors (3 x ([F,] V)), moments (10 x ([F,] V)), probe cache
+    (rows, found, parity)[, per-cell moments ([F,] V, 10)])."""
+    if xyz.ndim == 2:
+        return _unframe(block_window_moments(xyz[None], valid[None], _enframe(bt), cell_size, return_cell))
+    dtype = xyz.dtype
+    dev = xyz.device
+    F = valid.shape[0]
+    V = bt.cx.shape[1]
+    B = V
+    cs = torch.full((), cell_size, dtype=dtype, device=dev)
+
+    store = _window_store(xyz, valid, bt, cell_size)
     flat = store.view(F * B + 1, 128)
 
     rows, found = block_window_probe_rows(bt, bt.cx, bt.cy, bt.cz)
@@ -794,7 +885,7 @@ def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_ce
     moments = tuple(out[..., i] for i in range(10))
     cache = (rows, found, parity)
     if return_cell:
-        cell_rec = store[torch.clamp(bt.cell_store, max=B * 8 - 1).long() + _frame_offsets(F, B * 8, pc)][..., :10]
+        cell_rec = store[torch.clamp(bt.cell_store, max=B * 8 - 1).long() + _frame_offsets(F, B * 8, bt.cell_store)][..., :10]
         cell_rec = cell_rec * bt.cell_valid[..., None].to(dtype)
         return anchors, moments, cache, cell_rec
     return anchors, moments, cache
