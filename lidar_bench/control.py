@@ -3,9 +3,10 @@
     python3 lidar_bench/control.py --workload <cell> --seeds 1,2,3 --seconds <s> [--sides program,control]
 
 For each seed, one run of the program (the port, as run.py drives it) and
-one of the control: the plain reference put in the program's place and
-computed a step below the configuration's precision (TF32 matrix products
-and convolutions for float32). Each prints one JSON line with the numbers
+one of the control: the plain reference that the cell's configuration
+names, put in the program's place and computed a step below the
+configuration's precision (TF32 matrix products and convolutions for
+float32). Each prints one JSON line with the numbers
 compared and whether they pass the cell's present limits. All runs share
 one process, so set-up is paid once a side. The benchmark's own runs never
 run the control.
@@ -31,15 +32,16 @@ def main(argv=None) -> int:
     os.environ["TLOAM_TORCH_BUILD_DIR"] = str(ROOT / "build" / "tloam_torch")
     import torch
 
-    from lidar_bench.harness import cell, programs
+    from lidar_bench.harness import cell, programs, spec
 
     if not torch.cuda.is_available():
         print("lidar_bench: the control runs on a CUDA device", file=sys.stderr)
         return 2
+    config = spec.config(spec.workload(spec.benchmark(), args.workload)["config"])
     for seed in (int(s) for s in args.seeds.split(",")):
         for side in args.sides.split(","):
             t0 = time.perf_counter()
-            prog = programs.reference() if side == "control" else None
+            prog = programs.reference(config) if side == "control" else None
             out = cell.run(args.workload, seed, args.seconds, False, "cuda", t0,
                            processes=min(8, os.cpu_count() or 1), program=prog, control=side == "control")
             print(json.dumps({"workload": args.workload, "seed": seed, "side": side, "correct": out["correct"],

@@ -94,13 +94,18 @@ class Batch:
         return {"batch_frames_per_s": solves * self.size / window_s, "solves": solves, "window_s": window_s}
 
     def traced(self, seconds: float, stages) -> dict:
-        """The window, then host syncs over `sync_solves` solves and a
-        profile of `profile_solves` solves. Every solve is an answer."""
+        """The window with the program's stage timers on; then, with them
+        off, host syncs over `sync_solves` solves and a profile of
+        `profile_solves` solves. Every solve is an answer."""
         t = self.traffic["trace"]
+        stages.enable()
         first = len(self._diag)
         e2e = self.window(seconds)
+        stage_ms = stages.collect()
+        stages.enable(False)
         rounds = torch.stack([r.max() for r, _ in self._diag[first:]]).cpu().tolist()
-        rec = {"kind": "batch", "solves": e2e["solves"], "batch": self.size, "rounds_max": rounds}
+        rec = {"kind": "batch", "solves": e2e["solves"], "batch": self.size, "stage_ms": stage_ms,
+               "rounds_max": rounds}
 
         def solve(counter=None) -> int:
             (pose, diag), n = counter(self._solve) if counter else (self._solve(), 0)

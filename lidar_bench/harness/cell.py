@@ -1,5 +1,6 @@
 """One run of one cell: set-up, the measured window (or the traced run),
-then the check of every answer against the plain reference."""
+then the check of every answer against the plain reference that the
+cell's configuration names (harness/programs.reference)."""
 from __future__ import annotations
 
 import contextlib
@@ -37,15 +38,17 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float, pr
         program=None, control: bool = False, bench: dict | None = None, bench_dir=spec.BENCH_DIR) -> dict:
     """The result of one run. `t0` is the process's start on the host clock.
     With `program` (default: the port) and `control` (TF32 on the program's
-    side) the control runs in the program's place. `bench` and `bench_dir`
-    (BENCHMARK.json's content and the folder of configs, traffic, limits,
-    metrics and the scan cache) default to the checkout's."""
+    side) the control, `programs.reference(config)`, runs in the program's
+    place. `bench` and `bench_dir` (BENCHMARK.json's content and the folder
+    of configs, traffic, limits, metrics and the scan cache) default to the
+    checkout's."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     bench = bench or spec.benchmark()
     wl = spec.workload(bench, cell)
     config, traffic = spec.config(wl["config"], bench_dir), spec.traffic(wl["traffic"], bench_dir)
     limits = spec.limits(cell, bench_dir)
+    ref_prog = programs.reference(config)  # a piece that does not resolve fails here, before any window
     prog = program or programs.port(dev)
     # a traffic mix may fix its drive (and so its work) for every seed; the seed then only reorders
     # it, or draws its sensor noise
@@ -71,7 +74,7 @@ def run(cell: str, seed: int, seconds: float, trace: bool, device, t0: float, pr
         torch.cuda.empty_cache()
 
     with programs.precision(False):
-        ref = driver(programs.reference(), config, traffic, scans, dev, seed).reference(answers)
+        ref = driver(ref_prog, config, traffic, scans, dev, seed).reference(answers)
     verdict = check.compare(answers, ref, limits)
 
     metrics = {}

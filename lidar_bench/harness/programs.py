@@ -5,10 +5,18 @@ run drives the port, the check drives the reference over the same scans,
 and the control drives the reference in the program's place at a lower
 precision. The port is ``tloam_torch``; nothing here imports the JAX
 package.
+
+The reference is the package under ``lidar_bench/`` that the cell's
+configuration names by its ``"reference"`` key, or ``reference/`` (the
+frozen copy of the port's frame path) where it names none. Such a piece
+has the modules ``frontend``, ``cloud``, ``config`` and ``registration``,
+each a file of its own or bound in its ``__init__.py`` (an unchanged
+module of ``lidar_bench.reference``, say).
 """
 from __future__ import annotations
 
 import contextlib
+import importlib
 import inspect
 from typing import Any, NamedTuple
 
@@ -44,13 +52,25 @@ def port(device) -> Program:
                    STAGES, picks)
 
 
-def reference() -> Program:
-    from lidar_bench.reference import frontend
-    from lidar_bench.reference.cloud import Cloud, stack_tensors
-    from lidar_bench.reference.config import load_pipeline_config
-    from lidar_bench.reference.registration import scan_matching
+DEFAULT_REFERENCE = "reference"
 
-    return Program("reference", frontend, Cloud, stack_tensors, scan_matching, load_pipeline_config)
+
+def reference(config: dict | None = None) -> Program:
+    """The plain reference that `config` names (see above). A name that
+    does not resolve to a package with every module and name the drivers
+    call raises a ValueError that names it; nothing falls back."""
+    name = (config or {}).get("reference", DEFAULT_REFERENCE)
+    where = f"reference piece {name!r} (lidar_bench/{name}/)"
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"{where}: not a package name")
+    try:
+        pkg = importlib.import_module(f"lidar_bench.{name}")
+        mods = {m: getattr(pkg, m, None) or importlib.import_module(f"{pkg.__name__}.{m}")
+                for m in ("frontend", "cloud", "config", "registration")}
+        return Program(name, mods["frontend"], mods["cloud"].Cloud, mods["cloud"].stack_tensors,
+                       mods["registration"].scan_matching, mods["config"].load_pipeline_config)
+    except (ImportError, AttributeError) as e:
+        raise ValueError(f"{where} does not resolve: {e}") from e
 
 
 def pipeline_config(prog: Program, config: dict):

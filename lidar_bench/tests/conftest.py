@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import sys
 import time
 from pathlib import Path
 
@@ -79,3 +80,35 @@ def cpu_run(tiny_bench, monkeypatch):
             torch.use_deterministic_algorithms(False)
 
     return run
+
+
+def write_piece(bench_dir: Path, name: str, files: dict[str, str]) -> Path:
+    """A reference piece, the package bench_dir/<name>/ with `files`
+    ({file name: source}); a piece binds in its __init__.py what it takes
+    unchanged from lidar_bench.reference."""
+    pkg = bench_dir / name
+    pkg.mkdir()
+    for f, src in files.items():
+        (pkg / f).write_text(src)
+    return pkg
+
+
+@pytest.fixture
+def pieces(monkeypatch):
+    """add(bench_dir): the pieces written under a copy of lidar_bench import
+    as lidar_bench.<piece>, as they would from the checkout's lidar_bench/
+    (the package's path is extended for the test, after its own folder)."""
+    import lidar_bench
+
+    added = []
+
+    def add(bench_dir: Path) -> None:
+        added.append(bench_dir)
+        monkeypatch.setattr(lidar_bench, "__path__", [*lidar_bench.__path__, str(bench_dir)])
+
+    yield add
+    for name in [m for m in sys.modules if m.startswith("lidar_bench.")]:
+        f = getattr(sys.modules[name], "__file__", None) or ""
+        if any(f.startswith(str(d)) for d in added):
+            del sys.modules[name]
+            vars(lidar_bench).pop(name.split(".")[1], None)

@@ -9,7 +9,7 @@ import time
 import pytest
 import torch
 
-from lidar_bench.harness import cell, programs
+from lidar_bench.harness import cell, programs, spec
 from lidar_bench.tests.conftest import SEED
 
 
@@ -18,9 +18,10 @@ from lidar_bench.tests.conftest import SEED
 def test_the_control_fails_where_the_port_passes(tiny_bench, name):
     if not torch.cuda.is_available():
         pytest.skip("the control's TF32 products exist only on a CUDA device")
+    config = spec.config(spec.workload(spec.benchmark(), name)["config"], tiny_bench)
     for seed in (SEED, SEED + 1, SEED + 2):
         sound = cell.run(name, seed, 3.0, False, "cuda", time.perf_counter(), processes=1, bench_dir=tiny_bench)
         control = cell.run(name, seed, 3.0, False, "cuda", time.perf_counter(), processes=1,
-                           program=programs.reference(), control=True, bench_dir=tiny_bench)
+                           program=programs.reference(config), control=True, bench_dir=tiny_bench)
         assert sound["correct"], sound["check"]
         assert not control["correct"], control["check"]

@@ -37,13 +37,37 @@ def _imported_roots(path) -> set[str]:
     return roots
 
 
+def _reference_packages() -> set[str]:
+    """The packages under lidar_bench/ other than the harness and its tests:
+    the frozen reference and every configuration's own piece."""
+    return {d.name for d in spec.BENCH_DIR.iterdir()
+            if (d / "__init__.py").is_file() and d.name not in ("harness", "tests")}
+
+
+def _lidar_bench_imports(path) -> set[str]:
+    """The lidar_bench packages that a file imports by absolute name."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+            [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+        out |= {n.split(".")[1] for n in names if n.startswith("lidar_bench.")}
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module == "lidar_bench":
+            out |= {a.name for a in node.names}
+    return out
+
+
 def test_the_reference_imports_nothing_of_the_port_or_jax():
-    files = sorted((spec.BENCH_DIR / "reference").glob("*.py"))
-    assert len(files) >= 12
-    for f in files:
-        assert not _imported_roots(f) & {"tloam_torch", "tloam_tpu", "jax", "jaxlib", "flax"}, f
-        assert "tloam_torch" not in {n.module for n in ast.walk(ast.parse(f.read_text()))
-                                     if isinstance(n, ast.ImportFrom) and n.module}, f
+    packages = _reference_packages()
+    assert "reference" in packages and len(list((spec.BENCH_DIR / "reference").glob("*.py"))) >= 12
+    for c in spec.benchmark()["configs"]:
+        assert spec.config(c["name"]).get("reference", "reference") in packages, c["name"]
+    for pkg in sorted(packages):
+        for f in sorted((spec.BENCH_DIR / pkg).rglob("*.py")):
+            assert not _imported_roots(f) & {"tloam_torch", "tloam_tpu", "jax", "jaxlib", "flax"}, f
+            assert "tloam_torch" not in {n.module for n in ast.walk(ast.parse(f.read_text()))
+                                         if isinstance(n, ast.ImportFrom) and n.module}, f
+            # of the benchmark, a piece takes only reference packages: the harness reaches the port
+            assert _lidar_bench_imports(f) <= packages, f
 
 
 def test_the_harness_imports_no_jax_and_the_port_only_through_programs():

@@ -7,8 +7,8 @@ import shutil
 
 import pytest
 
-from lidar_bench.harness import spec
-from lidar_bench.tests.conftest import SEED
+from lidar_bench.harness import programs, spec
+from lidar_bench.tests.conftest import SEED, write_piece
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -23,6 +23,15 @@ def test_every_cell_names_files_that_exist_and_reports_what_it_must():
         assert NAME.match(c["name"]) and (spec.ROOT / c["file"]).is_file()
         assert spec.config(c["name"])["name"] == c["name"]
         assert c["reduced"] == spec.config(c["name"])["reduced"]
+        # its reference piece (the frozen reference where it names none) exists and binds what the drivers call
+        piece = spec.config(c["name"]).get("reference", programs.DEFAULT_REFERENCE)
+        assert (spec.BENCH_DIR / piece / "__init__.py").is_file()
+        ref = programs.reference(spec.config(c["name"]))
+        assert ref.name == piece
+        assert all(callable(f) for f in (ref.Cloud, ref.stack_tensors, ref.load_config, ref.solve))
+        assert all(callable(getattr(ref.frontend, f)) for f in (
+            "init_state", "odometry_step_packed", "preprocess_frame", "submap_features", "odometry_step"))
+        assert callable(ref.Cloud.pack_scan) and callable(ref.Cloud.from_packed)
     for w in bench["workloads"]:
         assert NAME.match(w["name"]) and w["config"] in configs and w["chips"] == 1
         assert len(w["why"]) <= 200
@@ -40,13 +49,19 @@ def test_every_cell_names_files_that_exist_and_reports_what_it_must():
     assert all(0.0 < m["bound"] <= 0.25 for m in bench["end_to_end"])
 
 
-def test_a_config_a_traffic_mix_and_a_metric_are_added_as_files_alone(tmp_path):
+def test_a_config_a_traffic_mix_and_a_metric_are_added_as_files_alone(tmp_path, pieces):
     dst = tmp_path / "lidar_bench"
     shutil.copytree(spec.BENCH_DIR, dst, ignore=shutil.ignore_patterns(".scan_cache", "__pycache__"))
+    before = {f: f.read_bytes() for f in dst.rglob("*") if f.is_file()}
     bench = spec.benchmark()
     c = spec.config("kitti-hdl64.cell_plane", dst)
     c["name"] = "kitti-hdl64.factor3"
     c["overrides"]["odometry.tls.factor_num"] = 3
+    # its own reference piece, a new directory: a registration of its own, the rest frozen
+    c["reference"] = "reference_factor3"
+    write_piece(dst, "reference_factor3", {
+        "__init__.py": "from lidar_bench.reference import cloud, config, frontend\nfrom . import registration\n",
+        "registration.py": "from lidar_bench.reference.registration import scan_matching  # noqa: F401\n"})
     (dst / "configs" / "kitti-hdl64.factor3.json").write_text(json.dumps(c))
     t = spec.traffic("batch64-urban", dst)
     t["replicas"] = 1
@@ -66,8 +81,18 @@ def test_a_config_a_traffic_mix_and_a_metric_are_added_as_files_alone(tmp_path):
     got = [m["name"] for m in spec.metrics_for(bench["per_layer"], w["name"])]
     assert "solves_in_window.batch" in got and "edge_pick_roofline" not in got
     assert spec.reader("solves_in_window.batch", dst)({"kind": "batch", "solves": 7}) == 7
+    pieces(dst)
+    ref = programs.reference(spec.config(w["config"], dst))
+    assert ref.name == "reference_factor3" and ref.solve.__module__ == "lidar_bench.reference.registration"
+    assert programs.reference(spec.config("kitti-hdl64.cell_plane", dst)).name == "reference"
     with pytest.raises(KeyError):
         spec.workload(bench, "no.such-cell")
+    # every file that was there is as it was: the cell, its configuration and its piece are new files
+    after = {f: f.read_bytes() for f in dst.rglob("*") if f.is_file() and "__pycache__" not in f.parts}
+    assert {f: after[f] for f in before} == before
+    assert {f.relative_to(dst).as_posix() for f in set(after) - set(before)} == {
+        "configs/kitti-hdl64.factor3.json", "traffic/batch16-urban.json", "limits/factor3.batch16-urban.json",
+        "metrics/solves_in_window.batch.py", "reference_factor3/__init__.py", "reference_factor3/registration.py"}
 
 
 def test_a_reader_that_finds_nothing_returns_none():
