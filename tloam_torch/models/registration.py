@@ -132,7 +132,9 @@ def calculate_covariances(cloud: Cloud, k_corr: int, radius: float = 1.0, max_pe
     covariance about the query point, eigenvalues divided by the largest and
     clamped at 1e-3, reassembled. As the JAX module (its :171-181), the
     middle eigenvalue is floored at 0.1 (one sharp direction a point), and
-    points with fewer than 3 neighbours fall back to the identity."""
+    points with fewer than 3 neighbours fall back to the identity. Counts
+    the slots it fits, ([F,] Q) from the shape, in ``gicp.cov_points``."""
+    STAGES.count("gicp.cov_points", math.prod(cloud.valid.shape))
     grid = voxel.build_hash_grid(cloud.xyz, cloud.valid, radius)
     idx, _, ok = voxel.query_knn(grid, cloud.xyz, cloud.valid, k=k_corr + 1, radius=radius, max_per_cell=max_per_cell)
     idx, ok = idx[..., 1:], ok[..., 1:]  # drop the self slot (nearest, distance 0)
@@ -642,11 +644,12 @@ def _solve(scan: FeatureSet, submap: FeatureSet, predict_pose: torch.Tensor, cfg
         if gicp:
             # with a group, the scan covariances see this rank's shard only, as
             # under the JAX shard_map
-            gicp_covs = {
-                name: calculate_covariances(c, cfg.k_corr, max_per_cell=cfg.max_per_cell)
-                for name, c in (("scan_planar", scan.planar), ("scan_ground", scan.ground),
-                                ("submap_planar", submap.planar), ("submap_ground", submap.ground))
-            }
+            with STAGES.stage("solve.grids.cov"):
+                gicp_covs = {
+                    name: calculate_covariances(c, cfg.k_corr, max_per_cell=cfg.max_per_cell)
+                    for name, c in (("scan_planar", scan.planar), ("scan_ground", scan.ground),
+                                    ("submap_planar", submap.planar), ("submap_ground", submap.ground))
+                }
     # the alignment-based mechanisms (starved revert, best round, stall
     # exit, misaligned fallback) need the planar cost's metric meaning (m^2);
     # GICP costs live on a covariance-normalized scale
