@@ -28,13 +28,25 @@ no result):
                    wrapper (zero fill and launch), of the kernel alone and
                    of the plain version, the index_put_ kernel's own time,
                    and the bound by bytes
+  3c. knn          csrc/knn_window.cu against its plain version
+                   (voxel._query_block: the candidate gather and stable
+                   sort) on the card, bit for bit in all three outputs and
+                   every slot, and launch against launch, at the batched
+                   GICP solve's kNN calls (64 frames): the four covariance
+                   calls (each cloud queries itself, k = 11) and a round's
+                   planar, ground, edge and sphere searches (k = 5 and 1);
+                   ms a call of the wrapper, of the kernel alone and of the
+                   plain version, the plain version's sort, and the bound
+                   by bytes
   4. drive         the full-size 23-frame synthetic drive (64 rings x 1870
                    azimuth steps, capacity 131072, default PipelineConfig)
                    through tloam_torch.pipeline.frontend.odometry_step_packed,
                    with kernel launch counts, frames/s over frames 3-22,
                    per-stage CUDA-event times, ATE and drift against the
                    ground truth, and the per-family correspondence minima;
-                   frame 1 counts its host syncs (CUDA sync-debug warnings
+                   the kNN kernel's launches a frame (the sphere family's
+                   1-NN in every GNC round); frame 1 counts its host syncs
+                   (CUDA sync-debug warnings
                    by source line), frame 2 is traced with torch.profiler
                    (device busy share, top kernels)
   5. canary        the JAX package's 60-frame varied-drive canary (32 x 1024
@@ -250,6 +262,14 @@ def window_launches() -> int:
     return STAGES.counts["window_moments.launch"]
 
 
+def knn_launches() -> int:
+    """Launches of the kNN kernel so far in this process (the tracer's
+    counter knn.launch)."""
+    from tloam_torch.utils.timing import STAGES
+
+    return STAGES.counts["knn.launch"]
+
+
 def count_syncs(fn):
     """Run fn with CUDA sync warnings on: (result, {python file:line: syncs})."""
     import collections
@@ -424,6 +444,77 @@ def window_moments_check(scans, dev) -> tuple[bool, list]:
     return ok, out
 
 
+# (frames, grid slots, queries a frame or None where the cloud queries
+# itself, k, radius = the grid's cell size) of the kNN calls of a batched
+# GICP solve at B = 64 (registration._solve, TLSConfig): the covariances of
+# the submap's planar and ground clouds and the scan's (k_corr + 1 within
+# 1 m), then a round's planar and ground 1-NN matches (1.5 m), edge 5-NN
+# (1 m) and sphere 1-NN (0.5 m, the submap's 3 x 1024 slots); the kNN
+# mode's planar and ground 5-NN (0.5 m)
+KNN_SHAPES = ((64, 12288, None, 11, 1.0), (64, 8192, None, 11, 1.0), (64, 4096, None, 11, 1.0),
+              (64, 1024, None, 11, 1.0), (64, 12288, 1024, 1, 1.5), (64, 8192, 4096, 1, 1.5),
+              (64, 8192, 2048, 5, 1.0), (64, 3072, 512, 1, 0.5), (64, 12288, 1024, 5, 0.5),
+              (64, 8192, 4096, 5, 0.5))
+KNN_MAX_PER_CELL = 8  # TLSConfig.max_per_cell
+
+
+def knn_check(scans, dev) -> tuple[bool, list]:
+    """Phase 3c: the kNN kernel against its plain version at the batched
+    solve's shapes. Frame f of a grid holds scan f % len(scans)
+    voxel-thinned at 0.4 m into two thirds of its slots (a submap's cloud);
+    its queries are the next scan's, thinned into two thirds of theirs."""
+    import torch
+
+    from tloam_torch.cloud import Cloud
+    from tloam_torch.ops import voxel
+
+    clouds = [Cloud.from_packed(torch.as_tensor(q).to(dev), m) for q, m in scans]
+
+    def thinned(F: int, n: int, shift: int):
+        xyz = torch.zeros((F, n, 3), device=dev)
+        valid = torch.zeros((F, n), dtype=torch.bool, device=dev)
+        for f in range(F):
+            c = clouds[(f + shift) % len(clouds)]
+            x, _, ok = voxel.voxel_downsample(c.xyz, c.intensity, c.valid, 0.4, 2 * n // 3)
+            xyz[f, : 2 * n // 3], valid[f, : 2 * n // 3] = x, ok
+        return xyz, valid
+
+    C = KNN_MAX_PER_CELL
+    out = []
+    for F, M, Q, k, radius in KNN_SHAPES:
+        xyz, valid = thinned(F, M, 0)
+        grid = voxel.build_hash_grid(xyz, valid, radius)
+        q, qv = (xyz, valid) if Q is None else thinned(F, Q, 1)
+        r = torch.full((), radius, dtype=torch.float32, device=dev)
+        before = knn_launches()
+        got = voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C)
+        again = voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C)
+        launches = knn_launches() - before
+        want = voxel._query_block(grid, q, qv, k, r, C)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32) if a.dtype is torch.float32 else a,
+                               b.view(torch.int32) if b.dtype is torch.float32 else b) for a, b in zip(got, want))
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        nq = q.shape[0] * q.shape[1]
+        # from device memory: each query's point, cell and flag, each answer's
+        # index, distance and flag; the tables and points stay in L2
+        nbytes = nq * (12 + 12 + 1) + nq * k * (8 + 4 + 1)
+        ms = cuda_ms(lambda: voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C), 20)
+        kernel_ms, kernels_per_call = profiled_kernel_ms(
+            lambda: voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C), 10, "knn_window_kernel")
+        plain_ms = cuda_ms(lambda: voxel._query_block(grid, q, qv, k, r, C), 3)
+        sort_ms, _ = profiled_kernel_ms(lambda: voxel._query_block(grid, q, qv, k, r, C), 2, "radixSortKVInPlace")
+        out.append({"frames": F, "slots": M, "queries": Q or M, "k": k, "radius": radius, "bit_identical": same,
+                    "repeats": repeat, "launches": launches, "ok_share": float(got[2].float().mean()),
+                    "ms": ms, "kernel_ms": kernel_ms, "device_kernels_per_call": kernels_per_call,
+                    "plain_ms": plain_ms, "plain_sort_kernel_ms": sort_ms, "bytes": nbytes,
+                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
+        del got, again, want
+    ok = all(r["bit_identical"] and r["repeats"] and r["launches"] == 2 and 0 < r["ok_share"] < 1 for r in out)
+    emit({"phase": "knn", "kernel": "knn_window", "shapes": out, "ok": ok})
+    return ok, out
+
+
 def canary(dev) -> bool:
     """The JAX package's 60-frame canary (tests/test_long_horizon.py:41-76):
     a varied drive (turns, stop-and-go, reverse) of 32 x 1024 scans under
@@ -507,7 +598,7 @@ def drive_scans(drive: str, n: int, seed: int = 0):
 def run_drive(cfg, scans) -> dict:
     """Drive the packed scans through frontend.odometry_step_packed, the
     kernels' counts set to 0 just before and read just after (the
-    window-moment kernel's also a frame). Frame
+    window-moment and kNN kernels' also a frame). Frame
     SYNC_FRAME counts its host syncs, PROFILE_FRAME is traced; every frame
     records its host-clock time and CUDA-event stage times."""
     import torch
@@ -518,7 +609,7 @@ def run_drive(cfg, scans) -> dict:
     state = frontend.init_state(cfg)
     out = {"poses": [], "corr": [], "rounds": [], "clusters": [], "frame_s": [], "stage_ms": [], "global_map": []}
     STAGES.enable()
-    launches0, window0 = edge_launches(), window_launches()
+    launches0, window0, knn0 = edge_launches(), window_launches(), knn_launches()
     for i, (q, n) in enumerate(scans):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -540,6 +631,8 @@ def run_drive(cfg, scans) -> dict:
     out["launches"] = edge_launches() - launches0
     out["window_launches"] = window_launches() - window0
     out["window_launches_frame"] = [int(s.get("count:window_moments.launch", 0)) for s in out["stage_ms"]]
+    out["knn_launches"] = knn_launches() - knn0
+    out["knn_launches_frame"] = [int(s.get("count:knn.launch", 0)) for s in out["stage_ms"]]
     STAGES.enable(False)
     out["state"] = state
     out["est"] = np.stack(out["poses"])
@@ -1432,6 +1525,12 @@ def main() -> int:
         return 1
     ground = window[2]
 
+    # ---- 3c. knn ----
+    ok_knn, knn = knn_check(scans, dev)
+    if not ok_knn:
+        return 1
+    cov = knn[0]
+
     # ---- 4. drive ----
     d = run_drive(cfg, scans)
     launches = d["launches"]
@@ -1443,8 +1542,11 @@ def main() -> int:
     # from the second frame on each cell table of the solve (edge, planar,
     # ground, and the coarse planar grid where a frame asks for it)
     ok_w = per_frame[0] >= 1 and min(per_frame[1:]) >= 4 and sum(per_frame) == d["window_launches"]
+    # the kNN kernel: the sphere family's 1-NN in every round of every solve
+    knn_frame = d["knn_launches_frame"]
+    ok_kf = min(knn_frame[1:]) >= 1 and sum(knn_frame) == d["knn_launches"]
     ok_d = (
-        ok_w and launches == N_FRAMES and np.isfinite(est).all() and est.shape == (N_FRAMES, 4, 4)
+        ok_w and ok_kf and launches == N_FRAMES and np.isfinite(est).all() and est.shape == (N_FRAMES, 4, 4)
         and ate < ATE_LIMIT_M and drift < DRIFT_LIMIT_M and min(d["corr_min"]) > 0
     )
     emit({"phase": "drive", "frames": N_FRAMES, "frames_per_s": d["frames_per_s"],
@@ -1453,7 +1555,8 @@ def main() -> int:
           "corr_min_planar_ground_edge_sphere": d["corr_min"],
           "clusters_min_max": [min(d["clusters"]), max(d["clusters"])],
           "edge_pick_launches": launches, "window_moments_launches": d["window_launches"],
-          "window_moments_launches_frame": per_frame, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "window_moments_launches_frame": per_frame, "knn_launches": d["knn_launches"],
+          "knn_launches_frame": knn_frame, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "host_syncs_frame": d["host_syncs_frame"], "profiled_frame": d["profiled_frame"],
           "ok": bool(ok_d)})
     if not ok_d:
@@ -1513,6 +1616,12 @@ def main() -> int:
         "launches": d["window_launches"], "ms": ground["ms"],
         "kernel_ms": ground["kernel_ms"], "plain_ms": ground["plain_ms"], "bound_ms": ground["bound_ms"],
         "bound_by": "bytes", "library_ms": ground["index_put_kernel_ms"], "match": ok_w,
+    }, {
+        "name": "knn_window", "route": "cuda", "source": "tloam_torch/csrc/knn_window.cu",
+        "replaces": None, "shape": [cov["frames"], cov["slots"], cov["k"]],
+        "launches": d["knn_launches"], "ms": cov["ms"], "kernel_ms": cov["kernel_ms"],
+        "plain_ms": cov["plain_ms"], "bound_ms": cov["bound_ms"], "bound_by": "bytes",
+        "library_ms": cov["plain_sort_kernel_ms"], "match": all(r["bit_identical"] for r in knn) and ok_kf,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -14,6 +14,10 @@ Exactness notes:
   * every sort is stable (`jnp.argsort` and `lax.sort(is_stable=True)` are);
   * `voxel_downsample` keeps the JAX module's cell-anchored integer fixed
     point, so its sums are exact on every device;
+  * `query_knn` on a CUDA tensor runs the hand-written kernel
+    ``csrc/knn_window.cu`` and on a CPU tensor its plain version
+    `_query_block`; the two give the same indices, distances and flags bit
+    for bit, in every slot (the card tests hold them equal);
   * `block_window_moments` sums each cell's float moments serially in
     input order: on a CUDA tensor in the hand-written kernel
     ``csrc/window_moments.cu``, on a CPU tensor in its plain version, an
@@ -404,18 +408,90 @@ def _query_block(grid: HashGrid, queries, query_valid, k: int, r: torch.Tensor, 
     return take(grid.src_idx, nn_slot, True), torch.where(nn_ok, nn_dist, BIG), nn_ok
 
 
+KNN_MAX_K = 32  # the most neighbours csrc/knn_window.cu returns: one a lane of a warp
+
+_knn_fn = None  # the library's launch function, bound at first use
+
+
+def _knn_kernel():
+    global _knn_fn
+    if _knn_fn is None:
+        fn = build.load("knn_window").tloam_knn_window
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        _knn_fn = fn
+    return _knn_fn
+
+
+def _query_knn_cuda(grid: HashGrid, queries, query_valid, k: int, radius: float, C: int):
+    """Launch csrc/knn_window.cu on framed inputs: one warp a query, the k
+    smallest (masked, j) of its 27 x C candidates kept in registers. The
+    same (idx, dist_sq, ok) as `_query_block`, bit for bit in every slot,
+    min(k, 27 C) of them a query. The grid's tensors and the queries must be
+    contiguous; the query cells come from `_cell_coords`, as the plain
+    version's do. Each launch adds one to the counter ``knn.launch``."""
+    F, M = grid.src_idx.shape
+    B = grid.dt.check.shape[1]
+    Q = queries.shape[1]
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"query_knn: the kernel returns 1 to {KNN_MAX_K} neighbours, not k = {k}")
+    if not 1 <= C <= 1 << 20:
+        raise ValueError(f"query_knn: max_per_cell must lie in 1..2**20, not {C}")
+    if not 1 <= M <= 1 << 20:
+        raise ValueError(f"query_knn: the kernel takes grids of 1 to 2**20 slots a frame, not {M}")
+    for name, t, dtype, shape in (
+        ("pts", grid.pts, torch.float32, (F, M, 3)), ("src_idx", grid.src_idx, torch.int64, (F, M)),
+        ("dt.check", grid.dt.check, torch.int32, (F, B, _BUCKET)),
+        ("dt.payload", grid.dt.payload, torch.int32, (F, B, _BUCKET)),
+        ("queries", queries, torch.float32, (F, Q, 3)), ("query_valid", query_valid, torch.bool, (F, Q)),
+    ):
+        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()):
+            raise ValueError(f"query_knn: {name} must be a contiguous {dtype} tensor of shape {shape}")
+    if B & (B - 1) or grid.dt.check.data_ptr() % 16:
+        raise ValueError("query_knn: the table must have a power of two of buckets, 16-byte aligned")
+    dev = queries.device
+    if not (dev.type == "cuda" and all(t.device == dev for t in (query_valid, grid.pts, grid.src_idx,
+                                                                   grid.dt.check, grid.dt.payload))):
+        raise ValueError("query_knn: every input must be a CUDA tensor on one device")
+    fn = _knn_kernel()
+    kout = min(k, 27 * C)
+    cells = _cell_coords(queries, grid.cell_size)
+    rr = np.float32(radius) * np.float32(radius)  # r * r, rounded as the plain version's 0-dim product
+    idx = torch.empty((F, Q, kout), dtype=torch.int64, device=dev)
+    dist = torch.empty((F, Q, kout), dtype=torch.float32, device=dev)
+    ok = torch.empty((F, Q, kout), dtype=torch.bool, device=dev)
+    on_dev = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
+    with on_dev:
+        rc = fn(
+            grid.pts.data_ptr(), grid.src_idx.data_ptr(), grid.dt.check.data_ptr(), grid.dt.payload.data_ptr(),
+            queries.data_ptr(), query_valid.data_ptr(), cells.data_ptr(), idx.data_ptr(), dist.data_ptr(),
+            ok.data_ptr(), F, M, B, Q, kout, C, float(rr), torch._C._cuda_getCurrentRawStream(dev.index),
+        )
+    if rc != 0:
+        raise RuntimeError(f"query_knn: kernel launch failed with CUDA error {rc}")
+    STAGES.count("knn.launch")
+    return idx, dist, ok
+
+
 def query_knn(grid: HashGrid, queries, query_valid, k: int, radius=None, max_per_cell: int = 8,
               chunk_size: int | None = None):
     """Batched kNN within `radius` (defaults to the cell size): (idx ([F,] Q,
     k) into the ORIGINAL buffer, dist_sq, neighbor_valid). Replaces
-    KDTreeFlann::SearchHybrid. With `chunk_size`, queries run in chunks of
-    that many, which bounds the candidate gather to chunk_size x 27 x
-    max_per_cell points; each query's answer does not depend on the chunk."""
+    KDTreeFlann::SearchHybrid. Dispatches by device: on a CUDA tensor the
+    kernel csrc/knn_window.cu (k at most KNN_MAX_K; nothing is materialized,
+    so `chunk_size` is not read), on a CPU tensor the plain version. With
+    `chunk_size`, the plain version runs the queries in chunks of that many,
+    which bounds its candidate gather to chunk_size x 27 x max_per_cell
+    points; each query's answer does not depend on the chunk."""
     if grid.pts.ndim == 2:
         return _unframe(query_knn(_enframe(grid), queries[None], query_valid[None], k, radius, max_per_cell,
                                   chunk_size))
-    r = torch.full((), grid.cell_size if radius is None else radius, dtype=queries.dtype,
-                     device=queries.device)
+    radius = grid.cell_size if radius is None else radius
+    if queries.device.type == "cuda":
+        return _query_knn_cuda(grid, queries.contiguous(), query_valid.contiguous(), k, radius, max_per_cell)
+    if queries.device.type != "cpu":
+        raise ValueError(f"query_knn: unsupported device {queries.device}")
+    r = torch.full((), radius, dtype=queries.dtype, device=queries.device)
     Q = queries.shape[1]
     if chunk_size is None or chunk_size >= Q:
         return _query_block(grid, queries, query_valid, k, r, max_per_cell)
