@@ -9,35 +9,27 @@ no result):
   1. device        require CUDA; print the card's name and power limit
   2. build         compile every kernel from tloam_torch/csrc with nvcc; ptxas
                    registers and static shared memory
-  3. kernel_check  each kernel against its plain PyTorch version on the
-                   card, bit for bit: seeded random rings (short rings, rings
-                   longer than W, exact ties, spikes), the sweep of
+  3. kernel_check  the edge kernel against its plain PyTorch version on the
+                   card (kernel_case, one check for phases 3-3c: every output
+                   bit for bit, a repeat call, launches a call; ms a call of
+                   the wrapper, of the kernel alone and of the plain
+                   version; the bound): seeded random rings (short rings,
+                   rings longer than W, exact ties, spikes), the sweep of
                    tests/test_torch_cuda.py (4 sector settings x 3 widths,
                    picks at sector boundaries) and the real dense planes of
-                   a full-size synthetic frame; dynamic shared memory per
-                   width; times both (CUDA events over 200 wrapper calls,
-                   and torch.profiler with device kernels per call)
-  3b. window_moments  csrc/window_moments.cu against its plain version
-                   (the accumulating index_put_) on the card, bit for bit
-                   and launch against launch, at the batched solve's three
+                   a full-size synthetic frame (timed); dynamic shared
+                   memory per width
+  3b. window_moments  csrc/window_moments.cu at the batched solve's three
                    cell-table shapes (64 frames of 8192, 12288 and 8192
-                   slots: edge, planar, ground) and the front end's (one
-                   frame of 131072): the drive's scans, voxel-thinned into
-                   two thirds of a submap's slots, or whole for the front
-                   end's call; ms a call of the
-                   wrapper (zero fill and launch), of the kernel alone and
-                   of the plain version, the index_put_ kernel's own time,
-                   and the bound by bytes
-  3c. knn          csrc/knn_window.cu against its plain version
-                   (voxel._query_block: the candidate gather and stable
-                   sort) on the card, bit for bit in all three outputs and
-                   every slot, and launch against launch, at the batched
-                   GICP solve's kNN calls (64 frames): the four covariance
-                   calls (each cloud queries itself, k = 11) and a round's
-                   planar, ground, edge and sphere searches (k = 5 and 1);
-                   ms a call of the wrapper, of the kernel alone and of the
-                   plain version, the plain version's sort, and the bound
-                   by bytes
+                   slots: edge, planar, ground; the drive's scans
+                   voxel-thinned into two thirds of the slots) and the front
+                   end's (one frame of 131072, the scans whole); the
+                   index_put_ kernel's own time
+  3c. knn          csrc/knn_window.cu at the batched GICP solve's kNN calls
+                   (64 frames): the four covariance calls (each cloud
+                   queries itself, k = 11) and a round's planar, ground,
+                   edge and sphere searches (k = 5 and 1); the share of
+                   answers found, the plain version's sort
   4. drive         the full-size 23-frame synthetic drive (64 rings x 1870
                    azimuth steps, capacity 131072, default PipelineConfig)
                    through tloam_torch.pipeline.frontend.odometry_step_packed,
@@ -246,28 +238,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def edge_launches() -> int:
-    """Launches of the edge kernel so far in this process (the tracer's
-    counter edge_pick.launch)."""
+def launch_count(counter: str) -> int:
+    """Launches so far in this process of the kernel the tracer's counter
+    `counter` counts (build.KERNEL_ENTRIES)."""
     from tloam_torch.utils.timing import STAGES
 
-    return STAGES.counts["edge_pick.launch"]
-
-
-def window_launches() -> int:
-    """Launches of the window-moment kernel so far in this process (the
-    tracer's counter window_moments.launch)."""
-    from tloam_torch.utils.timing import STAGES
-
-    return STAGES.counts["window_moments.launch"]
-
-
-def knn_launches() -> int:
-    """Launches of the kNN kernel so far in this process (the tracer's
-    counter knn.launch)."""
-    from tloam_torch.utils.timing import STAGES
-
-    return STAGES.counts["knn.launch"]
+    return STAGES.counts[counter]
 
 
 def count_syncs(fn):
@@ -372,16 +348,46 @@ def random_rings(rng: np.random.Generator, R: int, W: int, ring_min_num: int):
     return xs, ys, zs, val, lens
 
 
-def edge_bound_ms(R: int, W: int, picks: int) -> float:
-    # each input read once (x, y, z, valid f32 + ring lengths int32), each
-    # output written once (edge, picked u8 + curvature f32)
-    nbytes = R * W * 16 + R * 4 + R * W * 6
-    # geometry ~50 f32 ops an element (33 tap adds, 3+5 curvature, 8 gap,
-    # 1 compare); each round ~3 compares an element
-    ops = R * W * (50 + 3 * picks)
-    return max(nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS) * 1e3, (
-        "bytes" if nbytes / PEAK_BYTES_S >= ops / PEAK_F32_FLOPS else "operations"
-    )
+def kernel_case(kernel: str, call, plain, nbytes: int, ops: int = 0, reps=None) -> tuple[dict, tuple]:
+    """One case of a kernel check (phases 3, 3b, 3c): `call` runs the kernel
+    `kernel` (of build.KERNELS) through its wrapper, `plain` its plain
+    version; each returns a tensor or a tuple of them. Returns (the case's
+    fields, the kernel's outputs): every output bit for bit (floats by their
+    bits), a repeat call the same, the kernel's launches a call (its
+    tracer counter), and the bound: the case's bytes at HBM peak or its f32
+    operations at peak, the longer. With reps = (wrapper, kernel, plain)
+    calls: ms a call of the wrapper (CUDA events), ms a launch of the
+    kernel alone (torch.profiler) and ms a call of the plain version."""
+    import torch
+
+    from tloam_torch import build
+
+    def outputs(fn):
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype is torch.float32 else t
+
+    counter = build.KERNEL_ENTRIES[kernel].counter
+    before = launch_count(counter)
+    got, again = outputs(call), outputs(call)
+    per_call = (launch_count(counter) - before) / 2
+    want = outputs(plain)
+    torch.cuda.synchronize()
+    floats = [(a, b) for a, b in zip(got, want) if a.is_floating_point()]
+    rec = {"bit_identical": all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+           "repeats": all(torch.equal(bits(a), bits(b)) for a, b in zip(got, again)),
+           "launches_per_call": per_call,
+           "max_abs_err": max((float((a.double() - b.double()).abs().max()) for a, b in floats), default=None)}
+    if reps:
+        rec["ms"] = cuda_ms(call, reps[0])
+        rec["kernel_ms"], rec["device_kernels_per_call"] = profiled_kernel_ms(call, reps[1], f"{kernel}_kernel")
+        rec["plain_ms"] = cuda_ms(plain, reps[2])
+    by_bytes, by_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_FLOPS
+    rec.update(bytes=nbytes, bound_ms=max(by_bytes, by_ops) * 1e3,
+               bound_by="bytes" if by_bytes >= by_ops else "operations")
+    return rec, got
 
 
 # (frames, slots, max_cells, cell size) of the window-moment calls: the
@@ -391,54 +397,52 @@ def edge_bound_ms(R: int, W: int, picks: int) -> float:
 WINDOW_SHAPES = ((64, 8192, 4096, 1.0), (64, 12288, 6144, 0.5), (64, 8192, 8192, 0.5), (1, 131072, 65536, 0.2))
 
 
-def window_moments_check(scans, dev) -> tuple[bool, list]:
-    """Phase 3b: the window-moment kernel against its plain version at the
-    main path's shapes. Frame f holds scan f % len(scans): as it is where
-    the frame has the scan's capacity (the front end's call), else
-    voxel-thinned at 0.4 m into two thirds of its slots, the rest padding
-    (a submap's cloud)."""
+def submap_frames(clouds, F: int, n: int, shift: int = 0):
+    """F frames of n slots on the clouds' device: frame f holds cloud
+    (f + shift) % len(clouds), as it is where it has n slots (the front
+    end's call), else voxel-thinned at 0.4 m into two thirds of the slots,
+    the rest padding (a submap's cloud)."""
     import torch
 
-    from tloam_torch.cloud import Cloud
     from tloam_torch.ops import voxel
 
-    clouds = [Cloud.from_packed(torch.as_tensor(q).to(dev), m) for q, m in scans]
+    dev = clouds[0].device
+    xyz = torch.zeros((F, n, 3), device=dev)
+    valid = torch.zeros((F, n), dtype=torch.bool, device=dev)
+    for f in range(F):
+        c = clouds[(f + shift) % len(clouds)]
+        if n == c.capacity:
+            xyz[f], valid[f] = c.xyz, c.valid
+        else:
+            x, _, ok = voxel.voxel_downsample(c.xyz, c.intensity, c.valid, 0.4, 2 * n // 3)
+            xyz[f, : 2 * n // 3], valid[f, : 2 * n // 3] = x, ok
+    return xyz, valid
+
+
+def window_moments_check(clouds) -> tuple[bool, list]:
+    """Phase 3b: the window-moment kernel against its plain version at the
+    main path's shapes, on the drive's scans (submap_frames)."""
+    import torch
+
+    from tloam_torch.ops import voxel
+
     out = []
     for F, n, V, cs in WINDOW_SHAPES:
-        xyz = torch.zeros((F, n, 3), device=dev)
-        valid = torch.zeros((F, n), dtype=torch.bool, device=dev)
-        for f in range(F):
-            c = clouds[f % len(clouds)]
-            if n == c.capacity:
-                xyz[f], valid[f] = c.xyz, c.valid
-            else:
-                x, _, ok = voxel.voxel_downsample(c.xyz, c.intensity, c.valid, 0.4, 2 * n // 3)
-                xyz[f, : 2 * n // 3], valid[f, : 2 * n // 3] = x, ok
+        xyz, valid = submap_frames(clouds, F, n)
         bt = voxel.build_block_table(xyz, valid, cs, V)
-        got = voxel._window_store_cuda(xyz, valid, bt, cs)
-        again = voxel._window_store_cuda(xyz, valid, bt, cs)
-        want = voxel._window_store_plain(xyz, valid, bt, cs)
-        torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-        repeat = torch.equal(got.view(torch.int32), again.view(torch.int32))
         counted = int((valid & (bt.point_cell >= 0)).sum())
-        written = int((got[:, 0] > 0).sum())
         rows, run_len = torch.unique_consecutive(bt.point_cell.gather(1, bt.point_order.long()), return_counts=True)
         # each slot's order and row index, each counted point's xyz and flag,
-        # each written record with its cell row (coords, flag, store row)
-        nbytes = F * n * 8 + counted * 13 + written * (64 + 17)
-        ms = cuda_ms(lambda: voxel._window_store_cuda(xyz, valid, bt, cs), 50)
-        kernel_ms, kernels_per_call = profiled_kernel_ms(
-            lambda: voxel._window_store_cuda(xyz, valid, bt, cs), 20, "window_moments_kernel")
-        plain_ms = cuda_ms(lambda: voxel._window_store_plain(xyz, valid, bt, cs), 5)
+        # each written record (one a valid cell) with its cell row (coords,
+        # flag, store row)
+        nbytes = F * n * 8 + counted * 13 + int(bt.cell_valid.sum()) * (64 + 17)
+        rec, (got,) = kernel_case("window_moments", lambda: voxel._window_store_cuda(xyz, valid, bt, cs),
+                                  lambda: voxel._window_store_plain(xyz, valid, bt, cs), nbytes, reps=(50, 20, 5))
         library_ms, _ = profiled_kernel_ms(lambda: voxel._window_store_plain(xyz, valid, bt, cs), 3,
                                            "indexing_backward_kernel")
-        out.append({"frames": F, "slots": n, "max_cells": V, "cell_size": cs, "bit_identical": same,
-                    "repeats": repeat, "counted_points": counted, "records": written,
-                    "longest_run": int(run_len[rows >= 0].max()), "ms": ms, "kernel_ms": kernel_ms,
-                    "device_kernels_per_call": kernels_per_call, "plain_ms": plain_ms,
-                    "index_put_kernel_ms": library_ms, "bytes": nbytes,
-                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
+        out.append({"frames": F, "slots": n, "max_cells": V, "cell_size": cs, **rec, "counted_points": counted,
+                    "records": int((got[:, 0] > 0).sum()), "longest_run": int(run_len[rows >= 0].max()),
+                    "index_put_kernel_ms": library_ms})
     ok = all(r["bit_identical"] and r["repeats"] and r["records"] > 0 for r in out)
     emit({"phase": "window_moments", "kernel": "window_moments", "shapes": out, "ok": ok})
     return ok, out
@@ -458,59 +462,33 @@ KNN_SHAPES = ((64, 12288, None, 11, 1.0), (64, 8192, None, 11, 1.0), (64, 4096, 
 KNN_MAX_PER_CELL = 8  # TLSConfig.max_per_cell
 
 
-def knn_check(scans, dev) -> tuple[bool, list]:
+def knn_check(clouds) -> tuple[bool, list]:
     """Phase 3c: the kNN kernel against its plain version at the batched
-    solve's shapes. Frame f of a grid holds scan f % len(scans)
-    voxel-thinned at 0.4 m into two thirds of its slots (a submap's cloud);
-    its queries are the next scan's, thinned into two thirds of theirs."""
+    solve's shapes: each grid on the drive's scans (submap_frames), its
+    queries on the next scans, thinned into two thirds of their slots."""
     import torch
 
-    from tloam_torch.cloud import Cloud
     from tloam_torch.ops import voxel
-
-    clouds = [Cloud.from_packed(torch.as_tensor(q).to(dev), m) for q, m in scans]
-
-    def thinned(F: int, n: int, shift: int):
-        xyz = torch.zeros((F, n, 3), device=dev)
-        valid = torch.zeros((F, n), dtype=torch.bool, device=dev)
-        for f in range(F):
-            c = clouds[(f + shift) % len(clouds)]
-            x, _, ok = voxel.voxel_downsample(c.xyz, c.intensity, c.valid, 0.4, 2 * n // 3)
-            xyz[f, : 2 * n // 3], valid[f, : 2 * n // 3] = x, ok
-        return xyz, valid
 
     C = KNN_MAX_PER_CELL
     out = []
     for F, M, Q, k, radius in KNN_SHAPES:
-        xyz, valid = thinned(F, M, 0)
+        xyz, valid = submap_frames(clouds, F, M)
         grid = voxel.build_hash_grid(xyz, valid, radius)
-        q, qv = (xyz, valid) if Q is None else thinned(F, Q, 1)
-        r = torch.full((), radius, dtype=torch.float32, device=dev)
-        before = knn_launches()
-        got = voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C)
-        again = voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C)
-        launches = knn_launches() - before
-        want = voxel._query_block(grid, q, qv, k, r, C)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a.view(torch.int32) if a.dtype is torch.float32 else a,
-                               b.view(torch.int32) if b.dtype is torch.float32 else b) for a, b in zip(got, want))
-        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        q, qv = (xyz, valid) if Q is None else submap_frames(clouds, F, Q, 1)
+        r = torch.full((), radius, dtype=torch.float32, device=xyz.device)
         nq = q.shape[0] * q.shape[1]
         # from device memory: each query's point, cell and flag, each answer's
         # index, distance and flag; the tables and points stay in L2
         nbytes = nq * (12 + 12 + 1) + nq * k * (8 + 4 + 1)
-        ms = cuda_ms(lambda: voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C), 20)
-        kernel_ms, kernels_per_call = profiled_kernel_ms(
-            lambda: voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C), 10, "knn_window_kernel")
-        plain_ms = cuda_ms(lambda: voxel._query_block(grid, q, qv, k, r, C), 3)
+        rec, got = kernel_case("knn_window", lambda: voxel.query_knn(grid, q, qv, k, radius=radius, max_per_cell=C),
+                               lambda: voxel._query_block(grid, q, qv, k, r, C), nbytes, reps=(20, 10, 3))
         sort_ms, _ = profiled_kernel_ms(lambda: voxel._query_block(grid, q, qv, k, r, C), 2, "radixSortKVInPlace")
-        out.append({"frames": F, "slots": M, "queries": Q or M, "k": k, "radius": radius, "bit_identical": same,
-                    "repeats": repeat, "launches": launches, "ok_share": float(got[2].float().mean()),
-                    "ms": ms, "kernel_ms": kernel_ms, "device_kernels_per_call": kernels_per_call,
-                    "plain_ms": plain_ms, "plain_sort_kernel_ms": sort_ms, "bytes": nbytes,
-                    "bound_ms": nbytes / PEAK_BYTES_S * 1e3})
-        del got, again, want
-    ok = all(r["bit_identical"] and r["repeats"] and r["launches"] == 2 and 0 < r["ok_share"] < 1 for r in out)
+        out.append({"frames": F, "slots": M, "queries": Q or M, "k": k, "radius": radius, **rec,
+                    "ok_share": float(got[2].float().mean()), "plain_sort_kernel_ms": sort_ms})
+        del got
+    ok = all(r["bit_identical"] and r["repeats"] and r["launches_per_call"] == 1 and 0 < r["ok_share"] < 1
+             for r in out)
     emit({"phase": "knn", "kernel": "knn_window", "shapes": out, "ok": ok})
     return ok, out
 
@@ -537,7 +515,7 @@ def canary(dev) -> bool:
     gt = synthetic.varied_trajectory(n, step=0.8)
     state = frontend.init_state(cfg, dev)
     poses = []
-    launches0 = edge_launches()
+    launches0 = launch_count("edge_pick.launch")
     t = time.perf_counter()
     for i in range(n):
         xyz, inten = synthetic.simulate_scan(gt[i], scene, rings=32, az_steps=1024,
@@ -546,7 +524,7 @@ def canary(dev) -> bool:
         state, pose, _ = frontend.odometry_step(state, raw, cfg)
         poses.append(pose.cpu().numpy())
     seconds = time.perf_counter() - t
-    launches = edge_launches() - launches0
+    launches = launch_count("edge_pick.launch") - launches0
     est = np.stack(poses)
     ate, drift = drive_errors(est, gt)
     ok = bool(np.isfinite(est).all() and drift[-1] < 2.5 and drift.max() < 2.6 and ate < 1.0 and launches == n)
@@ -609,7 +587,7 @@ def run_drive(cfg, scans) -> dict:
     state = frontend.init_state(cfg)
     out = {"poses": [], "corr": [], "rounds": [], "clusters": [], "frame_s": [], "stage_ms": [], "global_map": []}
     STAGES.enable()
-    launches0, window0, knn0 = edge_launches(), window_launches(), knn_launches()
+    launches0, window0, knn0 = (launch_count(c) for c in ("edge_pick.launch", "window_moments.launch", "knn.launch"))
     for i, (q, n) in enumerate(scans):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -628,10 +606,10 @@ def run_drive(cfg, scans) -> dict:
         out["rounds"].append(int(diag.iterations))
         out["clusters"].append(int(diag.num_clusters))
         out["global_map"].append(int(state.global_map.count()))
-    out["launches"] = edge_launches() - launches0
-    out["window_launches"] = window_launches() - window0
+    out["launches"] = launch_count("edge_pick.launch") - launches0
+    out["window_launches"] = launch_count("window_moments.launch") - window0
     out["window_launches_frame"] = [int(s.get("count:window_moments.launch", 0)) for s in out["stage_ms"]]
-    out["knn_launches"] = knn_launches() - knn0
+    out["knn_launches"] = launch_count("knn.launch") - knn0
     out["knn_launches_frame"] = [int(s.get("count:knn.launch", 0)) for s in out["stage_ms"]]
     STAGES.enable(False)
     out["state"] = state
@@ -918,9 +896,9 @@ def run_parallel(cfg, scans) -> tuple[bool, int]:
     from tloam_torch.utils.op_count import count_ops
 
     tls = cfg.odometry.tls
-    launches0 = edge_launches()
+    launches0 = launch_count("edge_pick.launch")
     entries = capture_entries(cfg, scans)
-    launches = edge_launches() - launches0
+    launches = launch_count("edge_pick.launch") - launches0
     dev = entries[0][2].device
     gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
     noisy = []
@@ -1086,7 +1064,7 @@ def run_cli(workdir: Path) -> tuple[bool, int]:
     workdir.mkdir(parents=True, exist_ok=True)
     w = lambda name: str(workdir / name)  # noqa: E731
     t = time.perf_counter()
-    launches0 = edge_launches()
+    launches0 = launch_count("edge_pick.launch")
     # (a) synthetic: uninterrupted with a checkpoint every 6 frames, then a
     # run stopped at frame 6 and one resumed from its checkpoint
     every = ["--checkpoint-every", str(CLI_STOP)]
@@ -1127,7 +1105,7 @@ def run_cli(workdir: Path) -> tuple[bool, int]:
     rc_k, m_k = cli_call(["run", "--data", str(root), "--output", w("k.txt")])
     kitti_s = time.perf_counter() - t
     rc_i, info = cli_call(["info"])
-    launches = edge_launches() - launches0
+    launches = launch_count("edge_pick.launch") - launches0
     ok = bool(
         rc_a == rc_b == rc_c == rc_k == rc_i == 0 and resume["trajectory_equal"] and resume["final_checkpoint_equal"]
         and boxes == list(range(CLI_FRAMES)) and readers_equal
@@ -1323,9 +1301,9 @@ def run_town() -> tuple[bool, int]:
     os.environ["TLOAM_SCAN_CACHE"] = str(cache)
     workers = os.cpu_count() or 1
     raycast_s = drives.fill_scan_cache(TOWN_FRAMES, workers, **TOWN_DRIVE)
-    launches0 = edge_launches()
+    launches0 = launch_count("edge_pick.launch")
     est, rel, info = drives.hard_town_drive(PipelineConfig(), frames=TOWN_FRAMES, collect_diags=True, **TOWN_DRIVE)
-    launches = edge_launches() - launches0
+    launches = launch_count("edge_pick.launch") - launches0
     drift = np.linalg.norm(est[:, :3, 3] - rel[:, :3, 3], axis=1)
     from tloam_torch.utils import trajectory
 
@@ -1370,7 +1348,7 @@ def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
     script = lambda name: load_by_path(root / "scripts" / f"{name}.py")  # noqa: E731
     workers = str(os.cpu_count() or 1)
     seconds = {}
-    launches0 = edge_launches()
+    launches0 = launch_count("edge_pick.launch")
 
     t = time.perf_counter()
     solver = script("torch_solver_bench").main(["--frames", "4", "--reps", "2", "--out", str(work / "gniters.json")])
@@ -1403,7 +1381,7 @@ def run_harness(bench_gt, bench_scans, factor3_est) -> tuple[bool, int]:
     ok_sweep = bool(sw["n_runs"] == 1 and run["finite"] and run["degenerate_frames"] == 0
                     and np.isfinite([run["ate_rmse_m"], run["max_drift_m"]]).all())
 
-    launches = edge_launches() - launches0
+    launches = launch_count("edge_pick.launch") - launches0
     # one a frame: the solver bench's 5 frames and 4 captures, the batched
     # bench's 4 frames and 1 capture, the bench drive, the sweep run
     expected = (1 + 2 * 4) + (4 + 1) + len(bench_scans) + HARNESS_SWEEP_FRAMES
@@ -1469,33 +1447,31 @@ def main() -> int:
               ring_min_num=cfg.ground.ring_min_num)
     R, W = cfg.sensor.sensor_model, cfg.edge_ring_width
 
-    def compare(planes, kw=kw):
-        outs_k = edge._pick_rounds_cuda(*planes, **kw)
-        outs_p = edge._pick_rounds_plain(*planes, **kw)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(outs_k, outs_p))
-        err = float((outs_k[2] - outs_p[2]).abs().max())
-        return same, err, int(outs_k[0].sum()), int(outs_k[1].sum())
+    def compare(planes, kw=kw, reps=None):
+        """The edge kernel's case at these planes; each input read once (x,
+        y, z, valid f32 and the ring lengths int32), each output written
+        once (edge, picked u8 and curvature f32); the geometry about 50 f32
+        operations an element (33 tap adds, 3 + 5 curvature, 8 gap, 1
+        compare), each round about 3 compares."""
+        r, w = planes[0].shape
+        rec, (e, picked, _) = kernel_case(
+            "edge_pick", lambda: edge._pick_rounds_cuda(*planes, **kw), lambda: edge._pick_rounds_plain(*planes, **kw),
+            r * w * 22 + r * 4, r * w * (50 + 3 * kw["picks_per_sector"]), reps)
+        return {**rec, "edges": int(e.sum()), "picked": int(picked.sum())}
 
     rng = np.random.default_rng(0)
-    rand = [torch.from_numpy(a).to(dev) for a in random_rings(rng, R, W, kw["ring_min_num"])]
-    same_r, err_r, n_edge_r, n_pick_r = compare(rand)
+    rand = compare([torch.from_numpy(a).to(dev) for a in random_rings(rng, R, W, kw["ring_min_num"])])
 
     # the card tests' sweep: every mapping of sectors to warps (settings of
     # num_sectors and picks), at a width that is no multiple of 32 and at
     # one that needs more than 48 KB of shared memory; 16 rows each put
     # picks within 5 columns of the sector boundaries
     card_tests = load_by_path(Path(__file__).resolve().parent / "tests" / "test_torch_cuda.py")
-    SETTINGS, sweep_rings = card_tests.SETTINGS, card_tests.rings
-    sweep = []
-    for width in (2304, 4096, 1000):
-        for ns, picks in SETTINGS:
-            kws = dict(kw, num_sectors=ns, picks_per_sector=picks)
-            same_s, err_s, n_edge_s, _ = compare(sweep_rings(dev, width=width, num_sectors=ns), kws)
-            sweep.append({"W": width, "num_sectors": ns, "picks": picks, "bit_identical": same_s,
-                          "max_abs_err": err_s, "edges": n_edge_s})
+    sweep = [{"W": width, "num_sectors": ns, "picks": picks,
+              **compare(card_tests.rings(dev, width=width, num_sectors=ns),
+                        dict(kw, num_sectors=ns, picks_per_sector=picks))}
+             for width in (2304, 4096, 1000) for ns, picks in card_tests.SETTINGS]
     same_s = all(s["bit_identical"] and s["edges"] > 0 for s in sweep)
-    err_s = max(s["max_abs_err"] for s in sweep)
     smem = {w: build.load("edge_pick").tloam_edge_pick_smem_bytes(w) for w in (1000, W, 4096)}
 
     gt, scans = drive_scans("bench", N_FRAMES)
@@ -1503,30 +1479,23 @@ def main() -> int:
     _, objects, obj_ring, clusters = frontend.segment_objects(Cloud.from_packed(q0, scans[0][1]), cfg)
     d = edge.dense_rings(clusters.segmented, obj_ring, frontend.edge_order_key(clusters, objects.capacity),
                          R, kw["ring_min_num"], W)
-    real = [d.dx, d.dy, d.dz, d.dval, d.ring_len]
-    same_f, err_f, n_edge_f, n_pick_f = compare(real)
-    k_ms = cuda_ms(lambda: edge._pick_rounds_cuda(*real, **kw), 200)
-    k_dev_ms, k_per_call = profiled_kernel_ms(lambda: edge._pick_rounds_cuda(*real, **kw), 20, "edge_pick_kernel")
-    p_ms = cuda_ms(lambda: edge._pick_rounds_plain(*real, **kw), 5)
-    bound_ms, bound_by = edge_bound_ms(R, W, kw["picks_per_sector"])
-    ok_k = same_r and same_f and same_s and n_edge_f > 0 and n_edge_r > 0
-    emit({"phase": "kernel_check", "kernel": "edge_pick", "shape": [R, W],
-          "random": {"bit_identical": same_r, "max_abs_err": err_r, "edges": n_edge_r, "picked": n_pick_r},
-          "frame": {"bit_identical": same_f, "max_abs_err": err_f, "edges": n_edge_f, "picked": n_pick_f},
-          "sweep": sweep, "dynamic_smem_bytes": smem,
-          "ms": k_ms, "profiler_device_ms": k_dev_ms, "device_kernels_per_call": k_per_call,
-          "plain_ms": p_ms, "bound_ms": bound_ms, "ok": ok_k})
+    frame = compare([d.dx, d.dy, d.dz, d.dval, d.ring_len], reps=(200, 20, 5))
+    ok_k = rand["bit_identical"] and frame["bit_identical"] and same_s and frame["edges"] > 0 and rand["edges"] > 0
+    emit({"phase": "kernel_check", "kernel": "edge_pick", "shape": [R, W], "random": rand, "frame": frame,
+          "sweep": sweep, "dynamic_smem_bytes": smem, "ok": ok_k})
     if not ok_k:
         return 1
 
     # ---- 3b. window_moments ----
-    ok_w, window = window_moments_check(scans, dev)
+    clouds = [Cloud.from_packed(torch.as_tensor(q).to(dev), m) for q, m in scans]
+    ok_w, window = window_moments_check(clouds)
     if not ok_w:
         return 1
     ground = window[2]
 
     # ---- 3c. knn ----
-    ok_knn, knn = knn_check(scans, dev)
+    ok_knn, knn = knn_check(clouds)
+    del clouds
     if not ok_knn:
         return 1
     cov = knn[0]
@@ -1608,8 +1577,9 @@ def main() -> int:
     emit({"kernels": [{
         "name": "edge_pick", "route": "cuda", "source": "tloam_torch/csrc/edge_pick.cu",
         "replaces": "tloam_tpu/models/edge.py:166", "launches": launches,
-        "max_abs_err": max(err_r, err_f, err_s), "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "match": same_r and same_f and same_s,
+        "max_abs_err": max(r["max_abs_err"] for r in (rand, frame, *sweep)), "ms": frame["ms"],
+        "kernel_ms": frame["kernel_ms"], "plain_ms": frame["plain_ms"], "bound_ms": frame["bound_ms"],
+        "bound_by": frame["bound_by"], "library_ms": None, "match": ok_k,
     }, {
         "name": "window_moments", "route": "cuda", "source": "tloam_torch/csrc/window_moments.cu",
         "replaces": None, "shape": [ground["frames"], ground["slots"]],

@@ -94,9 +94,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tv._window_store_cuda(torch.cat([xyz, xyz], dim=-1)[..., 1:4], valid, bt, 0.5)
     with pytest.raises(ValueError, match="valid must be a contiguous"):
         tv._window_store_cuda(xyz, torch.stack([valid, valid], dim=-1)[..., 0], bt, 0.5)
-    x3, v3 = clouds(3, 600, 0.5)
-    with pytest.raises(ValueError, match="point_cell"):  # a table of 2 frames for 3 frames of points
-        tv._window_store_cuda(x3, v3, bt, 0.5)
+    x5, v5 = clouds(2, 500, 0.5)
+    with pytest.raises(ValueError, match="point_cell"):  # a table of 600 slots a frame for 500 slots of points
+        tv._window_store_cuda(x5, v5, bt, 0.5)
     with pytest.raises(ValueError, match="cx, cy, cz"):
         tv._window_store_cuda(xyz, valid, bt._replace(cx=bt.cx.long()), 0.5)
     with pytest.raises(ValueError, match="unsupported device"):

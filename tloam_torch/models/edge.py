@@ -16,15 +16,12 @@ run on that layout:
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from tloam_torch import build
 from tloam_torch.cloud import Cloud
-from tloam_torch.utils.timing import STAGES
 
 
 def _roll_cols(a: torch.Tensor, k: int) -> torch.Tensor:
@@ -98,19 +95,6 @@ def _pick_rounds_plain(
     return edge_d, picked_d, dcurv
 
 
-_kernel_fn = None  # the library's launch function, bound at first use
-
-
-def _kernel():
-    global _kernel_fn
-    if _kernel_fn is None:
-        fn = build.load("edge_pick").tloam_edge_pick
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]
-        _kernel_fn = fn
-    return _kernel_fn
-
-
 def _pick_rounds_cuda(
     dx, dy, dz, dval, lenr, num_sectors: int, picks_per_sector: int,
     curv_thres: float, suppress_gap_sq: float, ring_min_num: int,
@@ -119,43 +103,24 @@ def _pick_rounds_cuda(
     `_pick_rounds_plain`; the kernel writes the masks as torch.bool.
     Each launch adds one to the counter ``edge_pick.launch``."""
     R, W = shape = dx.shape
-    for name, t in (("dx", dx), ("dy", dy), ("dz", dz), ("dval", dval)):
-        if not (t.is_cuda and t.dtype is torch.float32 and t.shape == shape and t.is_contiguous()):
-            raise ValueError(f"edge_pick: {name} must be a contiguous float32 CUDA tensor of shape {(R, W)}")
-    dev = dx.get_device()
-    if not (lenr.dtype is torch.int32 and lenr.get_device() == dev and lenr.shape == (R,) and lenr.is_contiguous()):
-        raise ValueError("edge_pick: ring lengths must be a contiguous int32 CUDA tensor of shape (R,)")
+    f32 = torch.float32
+    dev = build.check("edge_pick", ("dx", dx, f32, shape), ("dy", dy, f32, shape), ("dz", dz, f32, shape),
+                      ("dval", dval, f32, shape), ("lenr", lenr, torch.int32, (R,)))
     if not (0 < W <= 4096) or not (1 <= num_sectors <= 8):
         raise ValueError(f"edge_pick: needs 0 < W <= 4096 and 1 <= num_sectors <= 8, got {W}, {num_sectors}")
-    fn = _kernel()
     edge = dx.new_empty(shape, dtype=torch.bool)
     picked = dx.new_empty(shape, dtype=torch.bool)
     dcurv = torch.empty_like(dx)
-    # the launch goes to the current device: switch only when dx lies elsewhere
-    on_dev = contextlib.nullcontext() if dev == torch.cuda.current_device() else torch.cuda.device(dev)
-    with on_dev:
-        rc = fn(
-            dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), dval.data_ptr(), lenr.data_ptr(),
-            edge.data_ptr(), picked.data_ptr(), dcurv.data_ptr(), R, W, num_sectors,
-            picks_per_sector, curv_thres, suppress_gap_sq, ring_min_num,
-            # the raw cudaStream_t of dx's device (torch.cuda.current_stream()
-            # builds a Stream object, several microseconds a call)
-            torch._C._cuda_getCurrentRawStream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"edge_pick: kernel launch failed with CUDA error {rc}")
-    STAGES.count("edge_pick.launch")
+    build.launch("edge_pick", dev, dx, dy, dz, dval, lenr, edge, picked, dcurv, R, W, num_sectors,
+                 picks_per_sector, curv_thres, suppress_gap_sq, ring_min_num)
     return edge, picked, dcurv
 
 
 def pick_rounds(dx, dy, dz, dval, lenr, **kw):
-    """Dispatch by device: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if dx.device.type == "cuda":
-        return _pick_rounds_cuda(dx, dy, dz, dval, lenr, **kw)
-    if dx.device.type == "cpu":
-        return _pick_rounds_plain(dx, dy, dz, dval, lenr, **kw)
-    raise ValueError(f"edge_pick: unsupported device {dx.device}")
+    """Dispatch by device (`build.on_card`): the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    run = _pick_rounds_cuda if build.on_card("edge_pick", dx.device) else _pick_rounds_plain
+    return run(dx, dy, dz, dval, lenr, **kw)
 
 
 class DenseRings(NamedTuple):

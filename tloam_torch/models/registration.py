@@ -715,21 +715,20 @@ def _solve(scan: FeatureSet, submap: FeatureSet, predict_pose: torch.Tensor, cfg
                 + torch.sum(torch.square(w.edge) * corr.edge_valid, dim=-1)
                 + torch.sum(torch.square(w.sphere) * corr.sphere_valid, dim=-1)
             )
-            n_valid = (
-                torch.sum(corr.plane_valid, dim=-1) + torch.sum(corr.ground_valid, dim=-1)
-                + torch.sum(corr.edge_valid, dim=-1) + torch.sum(corr.sphere_valid, dim=-1)
-            )
-            w_scale = _psum(w_mass, group) / torch.clamp(_psum(n_valid, group), min=1)
-            planar_empty = _psum(torch.sum(corr.plane_valid, dim=-1), group) == 0
+            # the round's four correspondence counts (planar, ground, edge,
+            # sphere), summed over the group once: integer sums, exact
+            counts = _psum(torch.stack(
+                [torch.sum(corr.plane_valid, dim=-1), torch.sum(corr.ground_valid, dim=-1),
+                 torch.sum(corr.edge_valid, dim=-1), torch.sum(corr.sphere_valid, dim=-1)], dim=-1
+            ), group)
+            w_scale = _psum(w_mass, group) / torch.clamp(torch.sum(counts, dim=-1), min=1)
+            planar_empty = counts[..., 0] == 0
             xi_new = _gn_inner(xi_in, scan, corr, w, cfg, planar_empty, w_scale, group)
 
         with STAGES.stage("solve.gnc"):
             _, _, costs = _evaluate(xi_new, scan, corr, w, _gicp_scale(cfg))
             planar_cost = _psum(torch.sum(costs.planar, dim=-1), group)
-            ncorr = _psum(torch.stack(
-                [torch.sum(corr.plane_valid, dim=-1), torch.sum(corr.ground_valid, dim=-1),
-                 torch.sum(corr.edge_valid, dim=-1), torch.sum(corr.sphere_valid, dim=-1)], dim=-1
-            ), group).to(torch.int32)
+            ncorr = counts.to(torch.int32)
             n_planar = ncorr[:, 0]
             mean_planar = planar_cost / torch.clamp(n_planar, min=1)
 

@@ -33,8 +33,6 @@ Exactness notes:
 """
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -43,7 +41,6 @@ import torch
 
 from tloam_torch import build
 from tloam_torch.cloud import map_tensors
-from tloam_torch.utils.timing import STAGES
 
 # Spatial-hash constants (linear forms, see tloam_tpu/ops/voxel.py:39-47)
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
@@ -410,19 +407,6 @@ def _query_block(grid: HashGrid, queries, query_valid, k: int, r: torch.Tensor, 
 
 KNN_MAX_K = 32  # the most neighbours csrc/knn_window.cu returns: one a lane of a warp
 
-_knn_fn = None  # the library's launch function, bound at first use
-
-
-def _knn_kernel():
-    global _knn_fn
-    if _knn_fn is None:
-        fn = build.load("knn_window").tloam_knn_window
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-        _knn_fn = fn
-    return _knn_fn
-
-
 def _query_knn_cuda(grid: HashGrid, queries, query_valid, k: int, radius: float, C: int):
     """Launch csrc/knn_window.cu on framed inputs: one warp a query, the k
     smallest (masked, j) of its 27 x C candidates kept in registers. The
@@ -439,37 +423,22 @@ def _query_knn_cuda(grid: HashGrid, queries, query_valid, k: int, radius: float,
         raise ValueError(f"query_knn: max_per_cell must lie in 1..2**20, not {C}")
     if not 1 <= M <= 1 << 20:
         raise ValueError(f"query_knn: the kernel takes grids of 1 to 2**20 slots a frame, not {M}")
-    for name, t, dtype, shape in (
-        ("pts", grid.pts, torch.float32, (F, M, 3)), ("src_idx", grid.src_idx, torch.int64, (F, M)),
+    dev = build.check(
+        "knn_window", ("pts", grid.pts, torch.float32, (F, M, 3)), ("src_idx", grid.src_idx, torch.int64, (F, M)),
         ("dt.check", grid.dt.check, torch.int32, (F, B, _BUCKET)),
         ("dt.payload", grid.dt.payload, torch.int32, (F, B, _BUCKET)),
         ("queries", queries, torch.float32, (F, Q, 3)), ("query_valid", query_valid, torch.bool, (F, Q)),
-    ):
-        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()):
-            raise ValueError(f"query_knn: {name} must be a contiguous {dtype} tensor of shape {shape}")
+    )
     if B & (B - 1) or grid.dt.check.data_ptr() % 16:
         raise ValueError("query_knn: the table must have a power of two of buckets, 16-byte aligned")
-    dev = queries.device
-    if not (dev.type == "cuda" and all(t.device == dev for t in (query_valid, grid.pts, grid.src_idx,
-                                                                   grid.dt.check, grid.dt.payload))):
-        raise ValueError("query_knn: every input must be a CUDA tensor on one device")
-    fn = _knn_kernel()
     kout = min(k, 27 * C)
     cells = _cell_coords(queries, grid.cell_size)
     rr = np.float32(radius) * np.float32(radius)  # r * r, rounded as the plain version's 0-dim product
     idx = torch.empty((F, Q, kout), dtype=torch.int64, device=dev)
     dist = torch.empty((F, Q, kout), dtype=torch.float32, device=dev)
     ok = torch.empty((F, Q, kout), dtype=torch.bool, device=dev)
-    on_dev = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
-    with on_dev:
-        rc = fn(
-            grid.pts.data_ptr(), grid.src_idx.data_ptr(), grid.dt.check.data_ptr(), grid.dt.payload.data_ptr(),
-            queries.data_ptr(), query_valid.data_ptr(), cells.data_ptr(), idx.data_ptr(), dist.data_ptr(),
-            ok.data_ptr(), F, M, B, Q, kout, C, float(rr), torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-    if rc != 0:
-        raise RuntimeError(f"query_knn: kernel launch failed with CUDA error {rc}")
-    STAGES.count("knn.launch")
+    build.launch("knn_window", dev, grid.pts, grid.src_idx, grid.dt.check, grid.dt.payload, queries, query_valid,
+                 cells, idx, dist, ok, F, M, B, Q, kout, C, float(rr))
     return idx, dist, ok
 
 
@@ -487,10 +456,8 @@ def query_knn(grid: HashGrid, queries, query_valid, k: int, radius=None, max_per
         return _unframe(query_knn(_enframe(grid), queries[None], query_valid[None], k, radius, max_per_cell,
                                   chunk_size))
     radius = grid.cell_size if radius is None else radius
-    if queries.device.type == "cuda":
+    if build.on_card("knn_window", queries.device):
         return _query_knn_cuda(grid, queries.contiguous(), query_valid.contiguous(), k, radius, max_per_cell)
-    if queries.device.type != "cpu":
-        raise ValueError(f"query_knn: unsupported device {queries.device}")
     r = torch.full((), radius, dtype=queries.dtype, device=queries.device)
     Q = queries.shape[1]
     if chunk_size is None or chunk_size >= Q:
@@ -861,20 +828,6 @@ def _window_store_plain(xyz, valid, bt: BlockTable, cell_size: float) -> torch.T
     return store
 
 
-_window_fn = None  # the library's launch function, bound at first use
-
-
-def _window_kernel():
-    global _window_fn
-    if _window_fn is None:
-        fn = build.load("window_moments").tloam_window_moments
-        fn.restype = ctypes.c_int
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [ptr] * 7 + [i64] * 2 + [ptr] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ptr]
-        _window_fn = fn
-    return _window_fn
-
-
 def _window_store_cuda(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Tensor:
     """Launch csrc/window_moments.cu: one thread per slot of each frame's
     point_order, the first slot of each cell's run sums it. Same store as
@@ -883,48 +836,28 @@ def _window_store_cuda(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Te
     one to the counter ``window_moments.launch``."""
     F, n = valid.shape
     V = bt.cx.shape[-1]
-    if not (xyz.dtype is torch.float32 and xyz.shape == (F, n, 3) and xyz.is_contiguous()):
-        raise ValueError(f"window_moments: xyz must be a contiguous float32 tensor of shape {(F, n, 3)}")
-    if not (valid.dtype is torch.bool and valid.is_contiguous()):
-        raise ValueError("window_moments: valid must be a contiguous bool tensor")
-    for name, dtype, shape in (("point_cell", torch.int32, (F, n)), ("point_order", torch.int32, (F, n)),
-                               ("cell_valid", torch.bool, (F, V)), ("cell_store", torch.int32, (F, V))):
-        t = getattr(bt, name)
-        if not (t.dtype is dtype and t.shape == shape and t.is_contiguous()):
-            raise ValueError(f"window_moments: the table's {name} must be a contiguous {dtype} tensor of shape {shape}")
     coords = (bt.cx, bt.cy, bt.cz)
-    if not all(c.dtype is torch.int32 and c.shape == (F, V) and c.stride() == bt.cx.stride() for c in coords):
+    if not all(c.dtype is torch.int32 and c.shape == (F, V) and c.stride() == bt.cx.stride()
+               and c.device == xyz.device for c in coords):
         raise ValueError(f"window_moments: the table's cx, cy, cz must be int32 of shape {(F, V)}, with one stride")
-    dev = xyz.device
-    if not (dev.type == "cuda" and all(t.device == dev for t in (valid, bt.point_cell, bt.point_order,
-                                                                   bt.cell_valid, bt.cell_store, *coords))):
-        raise ValueError("window_moments: every input must be a CUDA tensor on one device")
-    fn = _window_kernel()
+    dev = build.check(
+        "window_moments", ("xyz", xyz, torch.float32, (F, n, 3)), ("valid", valid, torch.bool, (F, n)),
+        ("point_cell", bt.point_cell, torch.int32, (F, n)), ("point_order", bt.point_order, torch.int32, (F, n)),
+        ("cell_valid", bt.cell_valid, torch.bool, (F, V)), ("cell_store", bt.cell_store, torch.int32, (F, V)),
+    )
     store = torch.zeros((F * V * 8 + 8, 16), dtype=torch.float32, device=dev)
-    # the launch goes to the current device: switch only when xyz lies elsewhere
-    on_dev = contextlib.nullcontext() if dev.index == torch.cuda.current_device() else torch.cuda.device(dev)
-    with on_dev:
-        rc = fn(
-            xyz.data_ptr(), valid.data_ptr(), bt.point_cell.data_ptr(), bt.point_order.data_ptr(),
-            bt.cx.data_ptr(), bt.cy.data_ptr(), bt.cz.data_ptr(), *bt.cx.stride(),
-            bt.cell_valid.data_ptr(), bt.cell_store.data_ptr(), store.data_ptr(), F, n, V, cell_size,
-            torch._C._cuda_getCurrentRawStream(dev.index),
-        )
-    if rc != 0:
-        raise RuntimeError(f"window_moments: kernel launch failed with CUDA error {rc}")
-    STAGES.count("window_moments.launch")
+    build.launch("window_moments", dev, xyz, valid, bt.point_cell, bt.point_order, *coords, *bt.cx.stride(),
+                 bt.cell_valid, bt.cell_store, store, F, n, V, cell_size)
     return store
 
 
 def _window_store(xyz, valid, bt: BlockTable, cell_size: float) -> torch.Tensor:
-    """Dispatch by device: the CUDA kernel on a CUDA tensor (points and
-    flags made contiguous: the unpacked frame path hands over columns of an
-    (n, 4) array), the plain version on a CPU tensor."""
-    if xyz.device.type == "cuda":
+    """Dispatch by device (`build.on_card`): the CUDA kernel on a CUDA
+    tensor (points and flags made contiguous: the unpacked frame path hands
+    over columns of an (n, 4) array), the plain version on a CPU tensor."""
+    if build.on_card("window_moments", xyz.device):
         return _window_store_cuda(xyz.contiguous(), valid.contiguous(), bt, cell_size)
-    if xyz.device.type == "cpu":
-        return _window_store_plain(xyz, valid, bt, cell_size)
-    raise ValueError(f"window_moments: unsupported device {xyz.device}")
+    return _window_store_plain(xyz, valid, bt, cell_size)
 
 
 def block_window_moments(xyz, valid, bt: BlockTable, cell_size: float, return_cell: bool = False):
